@@ -1,0 +1,19 @@
+"""repro_torch — the PolarFly reproduction ported to PyTorch and CUDA.
+
+A second package beside the JAX package ``repro``, which stays the
+reference.  This package imports ``torch`` and numpy, never ``jax`` and
+nothing of ``repro``: the host modules it needs (graph construction,
+routing, traffic, path building, obs) are its own copies.
+
+Ported so far is the paper's §VIII saturation path:
+
+    core.polarfly.build_polarfly -> core.routing.build_routing ->
+    simulation.make_pattern -> simulation.build_flow_paths ->
+    simulation.saturation_throughput / evaluate_load / latency_curve
+
+with the per-step path-cost reduction as a hand-written CUDA kernel
+(``kernels/minplus/csrc/path_costs.cu``).  Entry points run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``.
+"""
+
+from .device import resolve_device  # noqa: F401
