@@ -6,17 +6,24 @@
 Builds every CUDA kernel of the port from the sources in this checkout
 (nvcc, at first use), holds each kernel against its plain PyTorch version
 on the card, checks the port on the card against the port on the CPU, and
-drives the paper's §VIII saturation path at PolarFly PF(31) (993 routers,
-p = 16 endpoints each, about 16k endpoints) through the public entry
-points.  Phases, one JSON line each:
+drives two paths through the public entry points: the paper's §VIII
+saturation path at PolarFly PF(31) (993 routers, p = 16 endpoints each,
+about 16k endpoints), and the structural-analysis path (the §IV-D
+routing table, the §IX diameters under link failure, the blocked routing
+on the device BFS) at PF(31) and at the repo's PF(79) scale tier (6321
+routers).  Phases, one JSON line each:
 
   device     the card's name and power limit
   build      the nvcc build and its seconds
-  kernels    each kernel against its plain version, bit for bit, at the
-             test shapes and at the main path's shape, in fp32 and fp64;
-             kernel, plain and library times (CUDA events, median of 30,
-             L2 emptied of the inputs before each sample) beside the
-             bytes bound
+  kernels    each kernel against its plain version, bit for bit
+             (tolerance 0), at the test shapes and at the paths' shapes:
+             path_costs in fp32 and fp64; minplus with INF entries, on
+             PF(31)'s full 993 x 993 distance matrix and on a 256-row
+             slice of PF(79)'s; gf_crossprod at q = 2..79 and on PF(31)'s
+             and PF(79)'s full vertex lists.  Kernel, plain and library
+             times (CUDA events, median of 30 (3 for a plain version
+             slower than 0.1 s), L2 emptied of the inputs before each
+             sample) beside the bound
   parity     PF(13), p = 7, random_perm: the port on the card against the
              port on the CPU
   main_path  PF(31), p = 16, seed 0: uniform and random_perm x {min, ugal,
@@ -24,6 +31,20 @@ points.  Phases, one JSON line each:
              the adaptive modes), each with its wall seconds and kernel
              launches, against the JAX package's values recorded in
              tests/fixtures/torch_port_pf31_reference.json
+  analysis   §IV-D: `intermediate_table` at PF(31) against the host
+             `intermediates_all_pairs()` off the diagonal, and at PF(79)
+             on 4096 seeded random pairs against the host
+             `intermediate(s, d)`.  §IX, Fig. 14's failure fractions in
+             `resilience_sweep`'s cumulative order, seed 1: PF(31)
+             `diameter_from_adj` at 0.05/0.2/0.4/0.55 against the host
+             sweep's diameters (-1 <-> inf); PF(79) at 0.05/0.2, the APSP
+             distance matrix against the device BFS
+             (`distance_blocks(backend="sharded")`) over all pairs, and
+             `diameter_and_aspl(backend="sharded")` against it.  Blocked
+             routing: PF(31) `build_blocked_routing(backend="sharded")`
+             next-hop columns against the host backend's.  Wall seconds
+             and launches for each (10 minplus launches per PF(31) APSP,
+             13 per PF(79) one, 1 gf_crossprod launch per table)
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -42,7 +63,20 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "torch_port_pf31_reference.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# Issue rates in lane-instructions a second, 132 SMs x lanes x 1.98 GHz.
+# fp32 add (67 TFLOP/s counts an FMA as two) and int32 add at 128 lanes;
+# fp32 min (FMNMX) and int32 multiply at 64 (scripts/fp32_issue_rate.py
+# measures all four on the card).  A (min,+) candidate is one FADD and one
+# FMNMX: 2 instructions at 128 lanes or one FMNMX at 64 give the same
+# least time.
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
+INT32_ALU_PER_S = 132 * 128 * 1.98e9
+INT32_MUL_PER_S = 132 * 64 * 1.98e9
 TEST_SHAPES = [(5, 3, 4), (300, 8, 5), (1, 1, 1)]
+MINPLUS_SHAPES = [(1, 1, 1), (130, 70, 50), (257, 129, 65)]
+GF_SIZES = [(1, 1), (5, 7), (300, 257)]
+FIG14_FRACTIONS = {31: [0.05, 0.2, 0.4, 0.55], 79: [0.05, 0.2]}
+NO_LIBRARY = "no single PyTorch call computes it"
 
 
 def emit(obj):
@@ -57,7 +91,7 @@ def nvidia_smi():
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def gpu_ms(torch, fn, samples=30, flush_bytes=128 << 20):
+def gpu_ms(torch, fn, samples=30, flush_bytes=128 << 20, warmup=3):
     """Median device time of `fn()` in ms: CUDA events around one call,
     right after a read of `flush_bytes`, which leaves the 50 MB L2 holding
     none of `fn`'s inputs (and no dirty lines), and a 1 ms device-side
@@ -65,7 +99,7 @@ def gpu_ms(torch, fn, samples=30, flush_bytes=128 << 20):
     so host launch cost stays out of the window."""
     scratch = torch.ones(flush_bytes // 4, dtype=torch.float32,
                          device="cuda")
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(samples):
@@ -141,7 +175,7 @@ def main_path_inputs(torch):
     return fp.device_arrays("cuda")[0], delay
 
 
-def phase_kernels(torch, state):
+def kernel_path_costs(torch, state):
     import numpy as np
     import torch.nn.functional as F
 
@@ -197,6 +231,177 @@ def phase_kernels(torch, state):
             "bytes": bytes_moved, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
             "bound_us": bound_ms * 1e3, "bound_share": bound_ms / ms}
+
+
+def damaged(g, fractions, seed=1):
+    """`g` with each of `fractions` of its links removed, in
+    `resilience_sweep`'s cumulative shuffled order (Fig. 14)."""
+    import numpy as np
+
+    edges = g.edge_list.copy()
+    np.random.default_rng(seed).shuffle(edges)
+    return [g.subgraph_without_edges(edges[:int(round(f * len(edges)))])
+            for f in fractions]
+
+
+def graphs(state):
+    """PF(31) and PF(79) (built once) and their damaged copies."""
+    from repro_torch.core.polarfly import build_polarfly
+
+    if "pf" not in state:
+        t0 = time.perf_counter()
+        state["pf"] = {q: build_polarfly(q) for q in (31, 79)}
+        state["pf_build_s"] = time.perf_counter() - t0
+        state["damaged"] = {q: damaged(state["pf"][q].graph, fr)
+                            for q, fr in FIG14_FRACTIONS.items()}
+    return state["pf"], state["damaged"]
+
+
+def held(torch, label, out, ref):
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, ref))
+    err = float((out.double() - ref.double()).abs().max()) \
+        if out.numel() else 0.0
+    if not same:
+        raise AssertionError(f"kernel differs from its plain version at "
+                             f"{label}: max abs err {err}")
+    return {"shape": label, "bit_identical": same, "max_abs_err": err}
+
+
+def kernel_minplus(torch, state):
+    import numpy as np
+
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.kernels.minplus.ref import (INF, adjacency_to_dist0,
+                                                 minplus_ref)
+
+    pf, dmg = graphs(state)
+    rng = np.random.default_rng(0)
+    rows = []
+    for m, k, n in MINPLUS_SHAPES:
+        a = rng.random((m, k), dtype=np.float32) * 10
+        b = rng.random((k, n), dtype=np.float32) * 10
+        a[rng.random((m, k)) < 0.3] = INF
+        b[rng.random((k, n)) < 0.3] = INF
+        a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        rows.append(held(torch, f"{(m, k, n)} with INF", ops.minplus(a, b),
+                         minplus_ref(a, b)))
+    # the first two squarings of APSP on damaged PF(31) and PF(79) (0.05)
+    mats = {}
+    for q in (31, 79):
+        d0 = adjacency_to_dist0(torch.from_numpy(
+            dmg[q][0].adjacency).cuda())
+        mats[q] = (d0, ops.minplus(d0, d0))
+    for step in (0, 1):
+        d = mats[31][step]
+        rows.append(held(torch, f"pf31 damaged 0.05, squaring {step + 1}",
+                         ops.minplus(d, d), minplus_ref(d, d)))
+        d = mats[79][step]
+        a = d[:256].contiguous()
+        rows.append(held(torch, f"pf79 damaged 0.05, squaring {step + 1}, "
+                         f"rows 0-255", ops.minplus(a, d),
+                         minplus_ref(a, d)))
+    times = {}
+    for q in (31, 79):
+        d = mats[q][1]
+        n = d.shape[0]
+        ms = gpu_ms(torch, lambda: ops.minplus(d, d))
+        plain = gpu_ms(torch, lambda: minplus_ref(d, d),
+                       samples=30 if q == 31 else 3,
+                       warmup=3 if q == 31 else 1)
+        bytes_moved = 3 * n * n * 4
+        ops_count = 2 * n ** 3
+        bound = max(bytes_moved / HBM_BYTES_PER_S,
+                    ops_count / FP32_INSTR_PER_S) * 1e3
+        times[f"pf{q}"] = {"n": n, "kernel_ms": ms, "plain_ms": plain,
+                           "bound_ms": bound, "bound_share": bound / ms,
+                           "bytes": bytes_moved, "lane_instructions":
+                           ops_count}
+    worst = max(r["max_abs_err"] for r in rows)
+    t79 = times["pf79"]
+    state["minplus"] = {
+        "name": "minplus", "route": "cuda",
+        "source": "src/repro_torch/kernels/minplus/csrc/minplus.cu",
+        "replaces": "src/repro/kernels/minplus/kernel.py:80",
+        "max_abs_err": worst, "ms": t79["kernel_ms"],
+        "plain_ms": t79["plain_ms"], "bound_ms": t79["bound_ms"],
+        "bound_by": "operations", "library_ms": None}
+    return {"checks": rows, "times": times, "timed_at": "pf79",
+            "library": None, "library_reason": NO_LIBRARY}
+
+
+def gf_ops_per_pair(q):
+    """(int32 multiplies, all int32 operations) of one (i, j) pair in
+    csrc/crossprod.cu, counted from its code: each % as one operation (it
+    is several instructions), mod_q as %, compare and add."""
+    e, bits, ones = q - 2, 0, 0
+    while e > 0:
+        bits, ones, e = bits + 1, ones + (e & 1), e >> 1
+    muls = 6 + bits + ones + 3  # cross, squares, products, normalise
+    cross = 6 + 3 + 3 * 3  # 6 multiplies, 3 subtractions, 3 mod_q
+    lead = 4  # two compares, two selects
+    power = bits * (1 + 3 + 2) + ones * (1 + 3)  # square+mod, loop test
+    normalise = 3 * (1 + 3)
+    return muls, cross + lead + power + normalise
+
+
+def kernel_gf_crossprod(torch, state):
+    import numpy as np
+
+    from repro_torch.kernels.gf_crossprod import ops
+    from repro_torch.kernels.gf_crossprod.ref import crossprod_normalized_ref
+
+    pf, _ = graphs(state)
+    rng = np.random.default_rng(0)
+    rows = []
+    for q in (2, 7, 31, 79):
+        for n, m in GF_SIZES:
+            s = torch.from_numpy(rng.integers(0, q, (n, 3)).astype(
+                np.int32)).cuda()
+            d = torch.from_numpy(rng.integers(0, q, (m, 3)).astype(
+                np.int32)).cuda()
+            rows.append(held(torch, f"q={q} {(n, m)}",
+                             ops.crossprod_normalized(s, d, q),
+                             crossprod_normalized_ref(s, d, q)))
+    times = {}
+    for q in (31, 79):
+        v = torch.from_numpy(pf[q].vertices.astype(np.int32)).cuda()
+        rows.append(held(torch, f"pf{q} vertices x vertices",
+                         ops.crossprod_normalized(v, v, q),
+                         crossprod_normalized_ref(v, v, q)))
+        n = v.shape[0]
+        ms = gpu_ms(torch, lambda: ops.crossprod_normalized(v, v, q))
+        plain = gpu_ms(torch, lambda: crossprod_normalized_ref(v, v, q))
+        bytes_moved = 12 * n * n + 2 * 12 * n
+        muls, int_ops = gf_ops_per_pair(q)
+        by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        by_ops = max(muls / INT32_MUL_PER_S,
+                     int_ops / INT32_ALU_PER_S) * n * n * 1e3
+        times[f"pf{q}"] = {"n": n, "kernel_ms": ms, "plain_ms": plain,
+                           "bound_ms": max(by_bytes, by_ops),
+                           "bytes_ms": by_bytes, "ops_ms": by_ops,
+                           "ops_per_pair": int_ops,
+                           "multiplies_per_pair": muls,
+                           "bound_share": max(by_bytes, by_ops) / ms}
+    t79 = times["pf79"]
+    state["gf_crossprod"] = {
+        "name": "gf_crossprod", "route": "cuda",
+        "source": "src/repro_torch/kernels/gf_crossprod/csrc/crossprod.cu",
+        "replaces": "src/repro/kernels/gf_crossprod/kernel.py:52",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": t79["kernel_ms"], "plain_ms": t79["plain_ms"],
+        "bound_ms": t79["bound_ms"],
+        "bound_by": ("bytes" if t79["bytes_ms"] >= t79["ops_ms"]
+                     else "operations"),
+        "library_ms": None}
+    return {"checks": rows, "times": times, "timed_at": "pf79",
+            "library": None, "library_reason": NO_LIBRARY}
+
+
+def phase_kernels(torch, state):
+    return {"path_costs": kernel_path_costs(torch, state),
+            "minplus": kernel_minplus(torch, state),
+            "gf_crossprod": kernel_gf_crossprod(torch, state)}
 
 
 def phase_parity(torch):
@@ -292,6 +497,135 @@ def phase_main_path(torch, state):
             "kernel_launches": state["launches"], "runs": rows}
 
 
+def phase_analysis(torch, state):
+    """The structural-analysis path on the card: the §IV-D routing table,
+    the §IX diameters under link failure, the blocked routing on the
+    device BFS.  The kernel counts start at 0 here and are read at the
+    end; the checks against plain versions launch no kernel."""
+    import numpy as np
+
+    from repro_torch.core.metrics import diameter_and_aspl, resilience_sweep
+    from repro_torch.core.routing import (build_blocked_routing,
+                                          distance_blocks)
+    from repro_torch.kernels.gf_crossprod import ops as gf_ops
+    from repro_torch.kernels.minplus import ops as mp_ops
+    from repro_torch.kernels.minplus.ref import apsp_steps
+
+    pf, dmg = graphs(state)
+    out, problems = {"pf_build_s": state["pf_build_s"]}, []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    gf_ops.LAUNCHES = 0  # the analysis path's counts start here
+    mp_ops.MINPLUS_LAUNCHES = 0
+
+    # §IV-D: the table of 2-hop intermediate routers
+    p31, p79 = pf[31], pf[79]
+    t = time.perf_counter()
+    table = gf_ops.intermediate_table(p31.vertices, 31)
+    wall = time.perf_counter() - t
+    off = ~np.eye(p31.n, dtype=bool)
+    host = p31.intermediates_all_pairs()
+    out["table_pf31"] = {"wall_s": wall, "shape": list(table.shape),
+                         "equal_off_diagonal": check(
+                             np.array_equal(table[off], host[off]),
+                             "pf31 intermediate table")}
+    t = time.perf_counter()
+    table = gf_ops.intermediate_table(p79.vertices, 79)
+    wall = time.perf_counter() - t
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, p79.n, 4096)
+    dst = (src + rng.integers(1, p79.n, 4096)) % p79.n  # never src
+    want = np.array([p79.intermediate(int(a), int(b))
+                     for a, b in zip(src, dst)])
+    out["table_pf79"] = {"wall_s": wall, "shape": list(table.shape),
+                         "pairs_checked": len(src), "equal": check(
+                             np.array_equal(table[src, dst], want),
+                             "pf79 intermediate table")}
+    del table
+    out["gf_crossprod_launches"] = gf_ops.LAUNCHES
+
+    # §IX at PF(31): card diameters against the host resilience sweep
+    fr = FIG14_FRACTIONS[31]
+    t = time.perf_counter()
+    sweep = resilience_sweep(p31.graph, fr, seed=1)
+    host_s = time.perf_counter() - t
+    rows = []
+    for f, g, pt in zip(fr, dmg[31], sweep):
+        before = mp_ops.MINPLUS_LAUNCHES
+        t = time.perf_counter()
+        diam = mp_ops.diameter_from_adj(g.adjacency)
+        wall = time.perf_counter() - t
+        launches = mp_ops.MINPLUS_LAUNCHES - before
+        want = np.inf if pt.diameter == -1 else float(pt.diameter)
+        rows.append({"fraction": f, "diameter": diam,
+                     "host_diameter": pt.diameter, "wall_s": wall,
+                     "launches": launches,
+                     "ok": check(diam == want and launches == apsp_steps(
+                         g.n), f"pf31 diameter at {f}")})
+    out["fig14_pf31"] = {"host_sweep_s": host_s, "runs": rows}
+
+    # §IX at PF(79): APSP against the device BFS over all pairs
+    rows = []
+    for f, g in zip(FIG14_FRACTIONS[79], dmg[79]):
+        before = mp_ops.MINPLUS_LAUNCHES
+        t = time.perf_counter()
+        d = mp_ops.apsp(g.adjacency)
+        apsp_s = time.perf_counter() - t
+        launches = mp_ops.MINPLUS_LAUNCHES - before
+        t = time.perf_counter()
+        same, blocks = True, 0
+        for srcs, db, _ in distance_blocks(g, backend="sharded"):
+            bfs = db.astype(np.float32)
+            bfs[db < 0] = np.inf
+            same &= bool(np.array_equal(d[srcs], bfs))
+            blocks += 1
+        bfs_s = time.perf_counter() - t
+        t = time.perf_counter()
+        diam, aspl = diameter_and_aspl(g, backend="sharded")
+        metric_s = time.perf_counter() - t
+        apsp_diam = float(d.max())
+        want_diam = np.inf if diam == -1 else float(diam)
+        finite = np.isfinite(d).all()
+        apsp_aspl = (float(d.sum(dtype=np.float64)) / (g.n * (g.n - 1))
+                     if finite else float("inf"))
+        rows.append({"fraction": f, "links": g.num_edges,
+                     "apsp_s": apsp_s, "launches": launches,
+                     "bfs_s": bfs_s, "bfs_blocks": blocks,
+                     "diameter_and_aspl_s": metric_s,
+                     "diameter": diam, "aspl": aspl,
+                     "apsp_diameter": apsp_diam, "apsp_aspl": apsp_aspl,
+                     "equal_all_pairs": check(same, f"pf79 apsp at {f}"),
+                     "ok": check(apsp_diam == want_diam and aspl == apsp_aspl
+                                 and launches == apsp_steps(g.n),
+                                 f"pf79 diameter at {f}")})
+        del d
+    out["fig14_pf79"] = {"runs": rows}
+
+    # blocked routing on the device BFS against the host backend
+    g = p31.graph
+    t = time.perf_counter()
+    dev = build_blocked_routing(g, backend="sharded")
+    cols_same = True
+    for a, b in zip(build_blocked_routing(g, backend="host").dest_blocks(),
+                    dev.dest_blocks()):
+        cols_same &= all(np.array_equal(x, y) for x, y in zip(a, b))
+    out["blocked_routing_pf31"] = {
+        "wall_s": time.perf_counter() - t, "diameter": dev.diameter,
+        "block": dev.block, "equal_columns": check(
+            cols_same and dev.diameter == 2, "pf31 blocked routing")}
+
+    state["minplus_launches"] = mp_ops.MINPLUS_LAUNCHES
+    state["gf_launches"] = gf_ops.LAUNCHES
+    out["minplus_launches"] = mp_ops.MINPLUS_LAUNCHES
+    if problems:
+        raise AssertionError(f"analysis path failed its checks: {problems}")
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -314,10 +648,12 @@ def main():
         smoke.phase("kernels", phase_kernels, torch, state)
         smoke.phase("parity", phase_parity, torch)
         smoke.phase("main_path", phase_main_path, torch, state)
-    kernels = []
-    if "path_costs" in state:
-        kernels.append({**state["path_costs"],
-                        "launches": state.get("launches", 0)})
+        smoke.phase("analysis", phase_analysis, torch, state)
+    launches = {"path_costs": state.get("launches", 0),
+                "minplus": state.get("minplus_launches", 0),
+                "gf_crossprod": state.get("gf_launches", 0)}
+    kernels = [{**state[name], "launches": launches[name]}
+               for name in launches if name in state]
     smoke.record["kernels"] = kernels
     smi = nvidia_smi()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -326,7 +662,8 @@ def main():
                    "failed": smoke.failed}, fh, indent=1)
     emit({"kernels": kernels})
     print(smi, flush=True)
-    if smoke.failed or not kernels or not state.get("launches"):
+    if (smoke.failed or len(kernels) != len(launches)
+            or not all(launches.values())):
         print(f"chip_smoke: failed phases: {smoke.failed}", file=sys.stderr)
         return 1
     emit({"ok": True, "device": {"platform": "gpu",

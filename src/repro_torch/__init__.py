@@ -5,15 +5,25 @@ reference.  This package imports ``torch`` and numpy, never ``jax`` and
 nothing of ``repro``: the host modules it needs (graph construction,
 routing, traffic, path building, obs) are its own copies.
 
-Ported so far is the paper's §VIII saturation path:
+Ported so far are the paper's §VIII saturation path:
 
     core.polarfly.build_polarfly -> core.routing.build_routing ->
     simulation.make_pattern -> simulation.build_flow_paths ->
     simulation.saturation_throughput / evaluate_load / latency_curve
 
 with the per-step path-cost reduction as a hand-written CUDA kernel
-(``kernels/minplus/csrc/path_costs.cu``).  Entry points run on the card
-(``device="cuda"``) unless the caller passes ``device="cpu"``.
+(``kernels/minplus/csrc/path_costs.cu``), and the structural-analysis
+entry points:
+
+    kernels.gf_crossprod.ops.intermediate_table   (§IV-D routing table,
+        kernel ``kernels/gf_crossprod/csrc/crossprod.cu``)
+    kernels.minplus.ops.apsp / diameter_from_adj  (§IX, kernel
+        ``kernels/minplus/csrc/minplus.cu``)
+    core.metrics, core.topologies, and backend="sharded" of the blocked
+        routing engine (the BFS in PyTorch on the device)
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``.
 """
 
 from .device import resolve_device  # noqa: F401

@@ -7,9 +7,8 @@ integer itself; for m > 1 the base-p digit packing of the polynomial
 coefficients (little-endian: value = sum_i c_i * p**i).
 
 All operations are exposed as vectorized numpy table lookups so that graph
-construction is O(N^2) array code.  (In the JAX package the same tables
-also feed the Pallas `gf_crossprod` kernel; its Hopper port is ROADMAP
-Queue 2, item 3.)
+construction is O(N^2) array code.  (For prime q the all-pairs cross
+product also runs on the card: `repro_torch.kernels.gf_crossprod`.)
 """
 
 from __future__ import annotations

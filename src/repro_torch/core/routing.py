@@ -49,11 +49,17 @@ the sparse engine as a streaming iterator so metrics (diameter / ASPL,
 resilience sweeps) never need to materialize an [n, n] table at all.
 
 The block loops themselves run on the shared blockwise executor
-(`repro_torch.parallel.blockwise.run_blocks`), host backend only: this
-module is the JAX package's ``core/routing.py`` without its device twins
-of the BFS and the next-hop columns (``_bfs_device_fn``,
-``_dest_device_fn``), which belong to ROADMAP Queue 1, item 7.
-``backend="sharded"`` raises `NotImplementedError` until then.
+(`repro_torch.parallel.blockwise.run_blocks`): ``backend="host"`` is the
+sequential reference loop, ``backend="sharded"`` runs each source or
+destination block on a device (the card unless the caller passes
+``device="cpu"``) through the PyTorch twins of `_bfs_block` and
+`_next_hop_rows` (`_bfs_device_fn`, `_dest_device_fn`), and
+``backend="auto"`` stays on the host loop unless a multi-device run is
+requested via ``devices``.  Backends are bit-identical
+(tests/test_torch_blockwise.py asserts it against the JAX package's host
+engine), so every consumer -- `sparse_routing_tables`,
+`destination_blocks`, the metrics streams, the blocked path builder -- is
+backend-blind.
 
 Destination-blocked consumption
 -------------------------------
@@ -73,15 +79,18 @@ as the simulator's last [n, n] consumer (see repro_torch.simulation.paths,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from .graph import Graph, UNREACHABLE
 from .polarfly import PolarFly
 from .stepping import walk_next_hops
-from ..parallel.blockwise import (DEFAULT_BUDGET_BYTES, block_size_for_budget,
-                                  peak_bytes, plan_blocks, run_blocks)
+from ..device import resolve_device
+from ..parallel.blockwise import (DEFAULT_BUDGET_BYTES, available_devices,
+                                  block_size_for_budget, peak_bytes,
+                                  plan_blocks, run_blocks)
 
 __all__ = [
     "UNREACHABLE",
@@ -105,6 +114,8 @@ __all__ = [
     "valiant_path",
     "compact_valiant_candidates",
 ]
+
+DeviceLike = Union[str, torch.device]
 
 # Largest vertex count routed through the dense reference engine by default;
 # tests assert sparse/dense bit-identity across topologies up to this size.
@@ -214,43 +225,129 @@ def _bfs_block(indptr: np.ndarray, indices: np.ndarray, sources: np.ndarray,
     return dist, nh
 
 
+def _bfs_device_fn(g: Graph, want_next_hop: bool, device: DeviceLike):
+    """PyTorch twin of `_bfs_block` for `run_blocks`' sharded backend,
+    running on `device`.
+
+    Same frontier BFS in a dense-gather formulation: level d gathers every
+    node's padded-neighbor frontier membership ([B, n, deg_max] bool) and
+    discovers the nodes with any frontier neighbor; first-hop labels
+    propagate as the minimum label over discovering neighbors (level 1
+    seeds each discovered node with its own id), which is the same set-min
+    the host engine computes via its segmented sort -- the discovering
+    edges of w are exactly the frontier neighbors of w on an undirected
+    graph -- so outputs are bit-identical.  The loop over levels is a
+    Python loop with one host check of the new frontier per level
+    (diameter + 1 checks).  Returns None (callers fall back to the host
+    loop) when the graph has no edges.
+    """
+    nb, _ = g.padded_neighbors
+    n, dmax = nb.shape
+    if dmax == 0:
+        return None
+    dev = resolve_device(device)
+    pres = torch.from_numpy(nb >= 0).to(dev)[None, :, :]
+    snb = torch.from_numpy(np.where(nb >= 0, nb, 0).astype(np.int64)).to(dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    unreachable = int(UNREACHABLE)
+
+    def fn(sources: torch.Tensor):
+        src = sources.to(dev)
+        b = src.shape[0]
+        rows = torch.arange(b, device=dev)
+        dist = torch.full((b, n), unreachable, dtype=torch.int16, device=dev)
+        dist[rows, src] = 0
+        front = torch.zeros((b, n), dtype=torch.bool, device=dev)
+        front[rows, src] = True
+        if want_next_hop:
+            nh = torch.full((b, n), unreachable, dtype=torch.int32,
+                            device=dev)
+            nh[rows, src] = src.to(torch.int32)
+        d = 0
+        while True:
+            d += 1
+            fr_nb = front[:, snb] & pres  # [B, n, deg_max]
+            newly = fr_nb.any(dim=2) & (dist == unreachable)
+            if not bool(newly.any()):
+                break
+            dist.masked_fill_(newly, d)
+            if want_next_hop:
+                if d == 1:
+                    cand = ids.expand(b, n)
+                else:
+                    cand = torch.where(fr_nb, nh[:, snb], n).amin(dim=2)
+                nh = torch.where(newly, cand, nh)
+            front = newly
+        return (dist, nh) if want_next_hop else (dist,)
+
+    return fn
+
+
+def _resolve_devices(backend: str, devices: Optional[int]) -> int:
+    """`devices=None` means every visible device (at least one) under
+    backend="sharded" and a single device (-> host loop) otherwise."""
+    if devices is not None:
+        return int(devices)
+    return max(1, available_devices()) if backend == "sharded" else 1
+
+
+def _device_run(backend: str, ndev: int) -> bool:
+    """Whether a device twin is needed: asked for by name, or "auto" with
+    a multi-device run requested and that many cards present (the twin is
+    built on its device, so it is not built where "auto" stays on the
+    host)."""
+    return backend == "sharded" or (ndev > 1 and available_devices() > 1)
+
+
 def distance_blocks(g: Graph, block: Optional[int] = None,
                     next_hop: bool = False,
                     budget_bytes: int = _BFS_BUDGET_BYTES,
-                    backend: str = "auto",
+                    backend: str = "auto", devices: Optional[int] = None,
+                    device: DeviceLike = "cuda",
                     ) -> Iterator[Tuple[np.ndarray, np.ndarray,
                                         Optional[np.ndarray]]]:
     """Stream the sparse engine: yields (sources, dist [B, n] int16,
     first_hop [B, n] int32 or None) per source block.
 
     Lets metrics consume all-pairs information in O(block * (n + E)) memory
-    without ever materializing an [n, n] table.  `backend` is the
-    blockwise executor backend ("auto" and "host" run the host loop).
+    without ever materializing an [n, n] table.  `backend`/`devices`
+    select the blockwise executor backend: "host" is the sequential
+    reference loop, "sharded" runs the BFS on `device` one block at a time
+    (bit-identical; degrades to the host loop on edge-free graphs), and
+    "auto" (the default) stays on the host loop unless `devices > 1` is
+    requested and that many cards exist.
     """
     indptr, indices = g.csr
     if block is None:
         block = bfs_block_size(g.n, len(indices), budget_bytes)
-    plan = plan_blocks(g.n, block=block)
+    ndev = _resolve_devices(backend, devices)
+    plan = plan_blocks(g.n, block=block, devices=ndev)
 
     def host_fn(srcs):
         dist, nh = _bfs_block(indptr, indices, srcs, next_hop)
         return (dist, nh) if next_hop else (dist,)
 
-    for srcs, outs in run_blocks(np.arange(g.n, dtype=np.int64), plan,
-                                 host_fn, backend=backend):
+    device_fn = (_bfs_device_fn(g, next_hop, device)
+                 if _device_run(backend, ndev) else None)
+    for srcs, outs in run_blocks(
+            np.arange(g.n, dtype=np.int64), plan, host_fn, device_fn,
+            backend="host" if device_fn is None else backend):
         yield srcs, outs[0], outs[1] if next_hop else None
 
 
 def sparse_routing_tables(g: Graph, block: Optional[int] = None,
                           backend: str = "auto",
+                          devices: Optional[int] = None,
+                          device: DeviceLike = "cuda",
                           ) -> Tuple[np.ndarray, np.ndarray]:
     """Full ([n, n] int16 distances, [n, n] int32 next hops) via the blocked
     BFS engine; bit-identical to the dense `all_pairs_distances` +
-    `next_hop_table` pair."""
+    `next_hop_table` pair on either executor backend."""
     dist = np.empty((g.n, g.n), dtype=np.int16)
     nh = np.empty((g.n, g.n), dtype=np.int32)
     for srcs, db, nb in distance_blocks(g, block, next_hop=True,
-                                        backend=backend):
+                                        backend=backend, devices=devices,
+                                        device=device):
         dist[srcs] = db
         nh[srcs] = nb
     return dist, nh
@@ -330,10 +427,43 @@ def _next_hop_columns(nb: np.ndarray, dests: np.ndarray,
     return np.ascontiguousarray(_next_hop_rows(nb, dests, dist_rows).T)
 
 
+def _dest_device_fn(g: Graph, device: DeviceLike):
+    """PyTorch twin of one `destination_blocks` block for the sharded
+    backend: the no-next-hop device BFS plus the `_next_hop_rows` column
+    derivation, both on `device`.  None when the host fallback applies."""
+    bfs = _bfs_device_fn(g, False, device)
+    if bfs is None:
+        return None
+    dev = resolve_device(device)
+    nb, _ = g.padded_neighbors
+    n = nb.shape[0]
+    pres = torch.from_numpy(nb >= 0).to(dev)[None, :, :]
+    nbt = torch.from_numpy(nb.astype(np.int32)).to(dev)
+    snb = torch.from_numpy(np.where(nb >= 0, nb, 0).astype(np.int64)).to(dev)
+    cols = torch.arange(n, device=dev)[None, :]
+
+    def fn(dests: torch.Tensor):
+        (dist_rows,) = bfs(dests)
+        d = dests.to(dev)
+        rows_b = torch.arange(d.shape[0], device=dev)
+        dist_nb = dist_rows[:, snb]  # [B, n, deg_max]
+        good = ((dist_nb == (dist_rows - 1)[:, :, None])
+                & pres & (dist_rows > 0)[:, :, None])
+        # argmax takes no bool; both frameworks return the first maximum
+        first = good.to(torch.uint8).argmax(dim=2)
+        nh = torch.where(good.any(dim=2), nbt[cols, first],
+                         int(UNREACHABLE))
+        nh[rows_b, d] = d.to(torch.int32)
+        return dist_rows, nh
+
+    return fn
+
+
 def destination_blocks(g: Graph, dests: Optional[np.ndarray] = None,
                        block: Optional[int] = None,
                        budget_bytes: int = _BFS_BUDGET_BYTES,
-                       backend: str = "auto",
+                       backend: str = "auto", devices: Optional[int] = None,
+                       device: DeviceLike = "cuda",
                        ) -> Iterator[Tuple[np.ndarray, np.ndarray,
                                            np.ndarray]]:
     """Stream routing state one destination block at a time: yields
@@ -344,8 +474,9 @@ def destination_blocks(g: Graph, dests: Optional[np.ndarray] = None,
     ``next_hop_table(g)[:, dests_blk[b]]`` columns; only destinations that
     appear in `dests` (default: all n) are ever computed, so sampled-flow
     workloads pay for the destinations they use and nothing else.
-    `backend` selects the blockwise executor backend as in
-    `distance_blocks`.
+    `backend`/`devices`/`device` select the blockwise executor backend
+    exactly as in `distance_blocks` -- the destination BFS is where the
+    blocked path builder spends its time at scale.
     """
     indptr, indices = g.csr
     nb, _ = g.padded_neighbors
@@ -354,14 +485,18 @@ def destination_blocks(g: Graph, dests: Optional[np.ndarray] = None,
     dests = np.asarray(dests, dtype=np.int64).ravel()
     if block is None:
         block = dest_block_size(g.n, len(indices), nb.shape[1], budget_bytes)
-    plan = plan_blocks(len(dests), block=block)
+    ndev = _resolve_devices(backend, devices)
+    plan = plan_blocks(len(dests), block=block, devices=ndev)
 
     def host_fn(dblk):
         dist_rows, _ = _bfs_block(indptr, indices, dblk, False)
         return dist_rows, _next_hop_rows(nb, dblk, dist_rows)
 
-    for dblk, (dist_rows, nh_rows) in run_blocks(dests, plan, host_fn,
-                                                 backend=backend):
+    device_fn = (_dest_device_fn(g, device)
+                 if _device_run(backend, ndev) else None)
+    for dblk, (dist_rows, nh_rows) in run_blocks(
+            dests, plan, host_fn, device_fn,
+            backend="host" if device_fn is None else backend):
         yield (dblk, np.ascontiguousarray(dist_rows.T),
                np.ascontiguousarray(nh_rows.T))
 
@@ -382,19 +517,24 @@ class BlockedRouting:
     diameter: int
     block: int  # default destinations per block
     backend: str = "auto"  # blockwise executor backend for column sweeps
+    devices: Optional[int] = None  # device count for backend="sharded"
+    device: DeviceLike = "cuda"  # where backend="sharded" runs the blocks
 
     def dest_blocks(self, dests: Optional[np.ndarray] = None,
                     block: Optional[int] = None,
                     ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         return destination_blocks(self.graph, dests,
                                   self.block if block is None else block,
-                                  backend=self.backend)
+                                  backend=self.backend, devices=self.devices,
+                                  device=self.device)
 
 
 def build_blocked_routing(g: Graph, block: Optional[int] = None,
                           budget_bytes: int = _BFS_BUDGET_BYTES,
                           diameter: Optional[int] = None,
                           backend: str = "auto",
+                          devices: Optional[int] = None,
+                          device: DeviceLike = "cuda",
                           ) -> BlockedRouting:
     """Streaming counterpart of `build_routing`: computes the diameter via
     `distance_blocks` (never holding an [n, n] table) and returns a
@@ -406,13 +546,14 @@ def build_blocked_routing(g: Graph, block: Optional[int] = None,
     pairs.  Constructions with a known diameter (any intact ER_q is 2 by
     §IV; PolarStar is 3) can pass `diameter=` to skip the n-source BFS
     sweep -- at PF(157) scale (n = 24807) that sweep costs more than the
-    path build it unlocks.  `backend` carries through to every column
-    sweep the returned state serves.
+    path build it unlocks.  `backend`/`devices`/`device` carry through to
+    every column sweep the returned state serves.
     """
     if diameter is None:
         diam = 0
         for _, db, _ in distance_blocks(g, budget_bytes=budget_bytes,
-                                        backend=backend):
+                                        backend=backend, devices=devices,
+                                        device=device):
             diam = max(diam, int(db.max()))
     else:
         diam = int(diameter)
@@ -421,7 +562,7 @@ def build_blocked_routing(g: Graph, block: Optional[int] = None,
         block = dest_block_size(g.n, len(indices),
                                 g.padded_neighbors[0].shape[1], budget_bytes)
     return BlockedRouting(graph=g, diameter=diam, block=block,
-                          backend=backend)
+                          backend=backend, devices=devices, device=device)
 
 
 def _resolve_engine(engine: str, n: int) -> str:

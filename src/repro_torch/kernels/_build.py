@@ -35,7 +35,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 
 # library name -> its sources, relative to this directory
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
-    "minplus": ("minplus/csrc/path_costs.cu",),
+    "minplus": ("minplus/csrc/path_costs.cu", "minplus/csrc/minplus.cu"),
+    "gf_crossprod": ("gf_crossprod/csrc/crossprod.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,3 +1,3 @@
-"""Distribution: the blockwise execution core (host backend)."""
+"""Distribution: the blockwise execution core (host and device backends)."""
 
 from . import blockwise  # noqa: F401

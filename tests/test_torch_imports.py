@@ -21,9 +21,23 @@ for name in names:
 runpy.run_path('chip_smoke.py', run_name='not_main')
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
-"""
+missing = sorted(set(%r) - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 26 else 0)
+""" % (sorted([
+    # the analysis slice: the §IX APSP and §IV-D routing-table entry
+    # points, their kernels' wrappers, the structural metrics and the
+    # blockwise device backend
+    "repro_torch.kernels.minplus.ops",
+    "repro_torch.kernels.minplus.ref",
+    "repro_torch.kernels.gf_crossprod",
+    "repro_torch.kernels.gf_crossprod.ops",
+    "repro_torch.kernels.gf_crossprod.ref",
+    "repro_torch.core.metrics",
+    "repro_torch.core.topologies",
+    "repro_torch.core.routing",
+    "repro_torch.parallel.blockwise",
+]),)
 
 
 def _env():

@@ -83,13 +83,18 @@ def test_destination_blocks_identical(q, which):
 
 
 def test_sharded_backend_not_ported():
-    pf = t_build_polarfly(3)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        list(t_routing.distance_blocks(pf.graph, backend="sharded"))
+    """The sharded backend never falls back quietly: it needs a device
+    twin of the block function, and by default it runs on the card, so
+    without one it raises (its bit-identity with the host engine is
+    tests/test_torch_blockwise.py's)."""
     plan = t_blockwise.plan_blocks(4, block=2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    with pytest.raises(ValueError, match="device_fn"):
         list(t_blockwise.run_blocks(np.arange(4), plan, lambda b: b,
                                     backend="sharded"))
+    if not torch.cuda.is_available():
+        pf = t_build_polarfly(3)
+        with pytest.raises(RuntimeError, match="cuda"):
+            list(t_routing.distance_blocks(pf.graph, backend="sharded"))
 
 
 # k-hop permutations need the intact graph's distance structure
