@@ -6,17 +6,20 @@
 Builds every CUDA kernel of the port from the sources in this checkout
 (nvcc, at first use), holds each kernel against its plain PyTorch version
 on the card, checks the port on the card against the port on the CPU, and
-drives two paths through the public entry points: the paper's §VIII
+drives three paths through the public entry points: the paper's §VIII
 saturation path at PolarFly PF(31) (993 routers, p = 16 endpoints each,
-about 16k endpoints), and the structural-analysis path (the §IV-D
-routing table, the §IX diameters under link failure, the blocked routing
-on the device BFS) at PF(31) and at the repo's PF(79) scale tier (6321
-routers).  Phases, one JSON line each:
+about 16k endpoints), the structural-analysis path (the §IV-D routing
+table, the §IX diameters under link failure, the blocked routing on the
+device BFS) at PF(31) and at the repo's PF(79) scale tier (6321
+routers), and the dense transformer's prefill and serve paths at
+Gemma2-9B's full width.  Each path's kernel counts are set to 0 just
+before it and read just after.  Phases, one JSON line each:
 
   device     the card's name and power limit
   build      the nvcc build and its seconds
-  kernels    each kernel against its plain version, bit for bit
-             (tolerance 0), at the test shapes and at the paths' shapes:
+  kernels    each kernel against its plain version (the first three bit
+             for bit, tolerance 0), at the test shapes and at the paths'
+             shapes:
              path_costs in fp32 and fp64; minplus with INF entries, on
              PF(31)'s full 993 x 993 distance matrix and on a 256-row
              slice of PF(79)'s; gf_crossprod at q = 2..79 and on PF(31)'s
@@ -45,6 +48,36 @@ routers).  Phases, one JSON line each:
              next-hop columns against the host backend's.  Wall seconds
              and launches for each (10 minplus launches per PF(31) APSP,
              13 per PF(79) one, 1 gf_crossprod launch per table)
+  model      Gemma2-9B at its published widths (d_model 3584, 16/8 heads
+             of 256, d_ff 14336, vocab 256000, window 4096, softcaps
+             50/30), bf16, random parameters from seed 0, all 42 layers
+             (no depth cut): the prefill (`forward` on B = 1, S = 8192)
+             with its wall seconds, flash-attention launches (one a
+             layer: 42) and finite logits, and a torch.profiler breakdown
+             of one more prefill; `launch.serve.generate` answering 4
+             greedy requests (prompt 16, 32 new tokens) after one warm-up
+             run, three timed runs and their median tokens/s (a smoke
+             reading, not a serve rate), and one profiled decode step;
+             then float32 at full width with 4 layers (two local/global
+             pairs), B = 2, 48 tokens, TF32 off: step-by-step
+             `decode_step` logits against the kernel-backed `forward`,
+             and the card's `forward` against the port's on the CPU from
+             the same parameters, both at rtol = atol = 2e-3
+             (tests/test_models.py's decode-vs-forward bar)
+
+The kernels phase also holds flash_attention against its plain version
+at tests/test_kernels.py's five cases and a ragged S = 200, and at the
+prefill's shapes (B = 1, 16/8 heads, S = 8192, D = 256, softcap 50,
+causal, window 4096 and none), each in fp32 and bf16.  fp32 is held at
+2e-6, the JAX test's bar.  bf16 is held at the JAX test's 2e-2 and, element
+by element, within one bf16 rounding of the plain version (2^-7 |ref| +
+1e-5): both compute in fp32 and round once, and at the prefill's shapes,
+where |out| is about 0.01, 2e-2 alone would pass a kernel that drops a
+key.  Kernel, plain and bound times at the prefill's shapes (bf16) and,
+at the same shape without softcap, the kernel's beside
+`scaled_dot_product_attention`'s (the library time; the port never
+calls it).  The flash-attention launches in the kernel table are the
+prefill's.
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -77,6 +110,30 @@ MINPLUS_SHAPES = [(1, 1, 1), (130, 70, 50), (257, 129, 65)]
 GF_SIZES = [(1, 1), (5, 7), (300, 257)]
 FIG14_FRACTIONS = {31: [0.05, 0.2, 0.4, 0.55], 79: [0.05, 0.2]}
 NO_LIBRARY = "no single PyTorch call computes it"
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+# tests/test_kernels.py's flash-attention CASES, then a ragged S:
+# b, hq, hkv, s, d, causal, softcap, window
+FLASH_CASES = [(2, 4, 2, 128, 64, True, None, None),
+               (1, 4, 4, 256, 64, True, 50.0, None),
+               (1, 8, 2, 256, 128, True, None, 128),
+               (1, 2, 1, 128, 64, False, None, None),
+               (1, 2, 2, 128, 256, True, 30.0, 64),
+               (1, 4, 2, 200, 64, True, 50.0, 48)]
+# the JAX test's own bars; the kernel and cuBLAS sum in other orders
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+# bf16 is also held element by element within one bf16 rounding of the
+# plain version, 2^-7 |ref| + 1e-5: kernel and plain version both compute
+# in float32 and round once at the end, so one unit in the last place (at
+# most 2^-7 of the value) is all they may differ by.  At the prefill's
+# shapes |out| is about 0.01 and 2e-2 would pass a wrong kernel; a key
+# dropped from a 4096-key window moves outputs by about 1e-4, ten times
+# this bar
+FLASH_BF16_BAR = {"atol": 1e-5, "rtol": 2.0 ** -7}
+GEMMA = "gemma2-9b"
+PREFILL_S = 8192
+SERVE = {"batch": 4, "prompt": 16, "tokens": 32, "runs": 3}
+# fp32 consistency at full width: two local/global pairs, B = 2, 48 tokens
+CONSISTENCY = {"layers": 4, "batch": 2, "seq": 48, "tol": 2e-3}
 
 
 def emit(obj):
@@ -398,10 +455,138 @@ def kernel_gf_crossprod(torch, state):
             "library": None, "library_reason": NO_LIBRARY}
 
 
+def attention_pairs(s, causal, window):
+    """Unmasked (query, key) pairs of one head at sequence length s."""
+    total = 0
+    for i in range(s):
+        hi = i if causal else s - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += hi - lo + 1
+    return total
+
+
+def flash_bound_ms(b, hq, hkv, s, d, causal, window, itemsize):
+    """(bound ms, flop-bound ms, byte-bound ms): 4 D flops per unmasked
+    pair and head at the dense bf16 tensor-core rate; q, k, v, o read or
+    written once at HBM rate."""
+    flops = 4 * d * attention_pairs(s, causal, window) * hq * b
+    nbytes = (2 * hq + 2 * hkv) * b * s * d * itemsize
+    by_ops = flops / BF16_TC_FLOPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), by_ops, by_bytes
+
+
+def gemma_attention_shape():
+    """(B, Hq, Hkv, S, D, softcap, window) of one Gemma2-9B prefill layer."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GEMMA)
+    return (1, cfg.num_heads, cfg.num_kv_heads, PREFILL_S, cfg.head_dim,
+            cfg.attn_softcap, cfg.local_window)
+
+
+def kernel_flash_attention(torch, state):
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (attention_chunked,
+                                                         attention_ref)
+
+    def inputs(b, hq, hkv, s, d, dtype, seed=0):
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.standard_normal(shape) * 0.5).to(
+            "cuda", dtype) for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                         (b, hkv, s, d))]
+
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+
+    def hold(label, out, want):
+        """Every element within the dtype's bar of the plain version: the
+        JAX test's (FLASH_TOL) and, in bf16, one rounding (FLASH_BF16_BAR)."""
+        torch.cuda.synchronize()
+        name = str(out.dtype).split(".")[-1]
+        o, w = out.float(), want.float()
+        diff = (o - w).abs()
+        err = float(diff.max())
+        bar = FLASH_BF16_BAR if name == "bfloat16" else \
+            {"atol": FLASH_TOL[name], "rtol": 0.0}
+        share = float((diff / (bar["atol"] + bar["rtol"] * w.abs())).max())
+        ok = bool(torch.isfinite(o).all()) and err <= FLASH_TOL[name] \
+            and share <= 1.0
+        worst[name] = max(worst[name], err)
+        rows.append({"case": label, "dtype": name, "max_abs_err": err,
+                     "tol": FLASH_TOL[name], **bar,
+                     "worst_share_of_bar": share, "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention differs from its plain "
+                                 f"version at {label} {name}: {rows[-1]}")
+
+    for case in FLASH_CASES:
+        b, hq, hkv, s, d, causal, cap, win = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = inputs(b, hq, hkv, s, d, dtype)
+            hold(str(case),
+                 ops.attention(q, k, v, causal=causal, softcap=cap,
+                               window=win),
+                 attention_ref(q, k, v, causal=causal, softcap=cap,
+                               window=win))
+    # the prefill's shapes: Gemma2-9B, local (window) and global, in bf16
+    # and in float32 on the same (bf16-exact) inputs at the fp32 bar
+    b, hq, hkv, s, d, cap, win = gemma_attention_shape()
+    q, k, v = inputs(b, hq, hkv, s, d, torch.bfloat16, seed=1)
+    times = {}
+    for layer, window in (("local", win), ("global", None)):
+        label = f"{GEMMA} {layer} {(b, hq, hkv, s, d)} softcap {cap}"
+        for x in ((q, k, v), (q.float(), k.float(), v.float())):
+            hold(label, ops.attention(*x, softcap=cap, window=window),
+                 attention_chunked(*x, softcap=cap, window=window))
+        bound, by_ops, by_bytes = flash_bound_ms(b, hq, hkv, s, d, True,
+                                                 window, 2)
+        ms = gpu_ms(torch, lambda: ops.attention(q, k, v, softcap=cap,
+                                                 window=window), samples=10)
+        plain = gpu_ms(torch, lambda: attention_chunked(
+            q, k, v, softcap=cap, window=window), samples=3, warmup=1)
+        times[layer] = {"window": window, "kernel_ms": ms, "plain_ms": plain,
+                        "bound_ms": bound, "flops_ms": by_ops,
+                        "bytes_ms": by_bytes, "bound_share": bound / ms}
+    # where SDPA computes the same function: causal, no softcap, no window
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    lib_err = float((sdpa().float() - ops.attention(q, k, v).float()
+                     ).abs().max())
+    bound = flash_bound_ms(b, hq, hkv, s, d, True, None, 2)[0]
+    times["causal_no_softcap"] = {
+        "kernel_ms": gpu_ms(torch, lambda: ops.attention(q, k, v),
+                            samples=10),
+        "library_ms": gpu_ms(torch, sdpa, samples=10),
+        "library_max_abs_err": lib_err, "bound_ms": bound}
+    library_ms = times["causal_no_softcap"]["library_ms"]
+    g = times["global"]
+    state["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+        "max_abs_err": max(worst.values()), "ms": g["kernel_ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": "operations" if g["flops_ms"] >= g["bytes_ms"]
+        else "bytes",
+        "library_ms": library_ms,
+        "library_computes": "scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True) at the same shape: causal "
+                            "attention without the softcap (less than the "
+                            "kernel does)"}
+    return {"checks": rows, "max_abs_err": worst, "times": times,
+            "timed_at": f"{GEMMA} prefill layer, S={s}, bf16",
+            "smem_bytes_d256": ops.smem_bytes(d)}
+
+
 def phase_kernels(torch, state):
     return {"path_costs": kernel_path_costs(torch, state),
             "minplus": kernel_minplus(torch, state),
-            "gf_crossprod": kernel_gf_crossprod(torch, state)}
+            "gf_crossprod": kernel_gf_crossprod(torch, state),
+            "flash_attention": kernel_flash_attention(torch, state)}
 
 
 def phase_parity(torch):
@@ -626,6 +811,201 @@ def phase_analysis(torch, state):
     return out
 
 
+def device_time_by_kernel(torch, fn):
+    """Run `fn` once under torch.profiler: {"wall_ms", "device_ms" (the sum
+    of the device's kernel and copy times), "kernels" (their number),
+    "flash_ms", "top" (the largest by device time)}.
+    An error of `fn` (a kernel's launch or a CUDA fault) propagates; one of
+    the profiler itself is reported in the result under "error", since the
+    breakdown checks nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof, error = profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]), None
+    try:
+        prof.start()
+    except Exception:  # noqa: BLE001 -- the profiler's own failure
+        error = traceback.format_exc(limit=2)
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if error is None:
+        try:
+            prof.stop()
+            events = prof.key_averages()
+        except Exception:  # noqa: BLE001 -- the profiler's own failure
+            error = traceback.format_exc(limit=2)
+    if error is not None:
+        return {"wall_ms": wall * 1e3, "error": error}
+    rows = [(evt.key, evt.self_device_time_total / 1e3, evt.count)
+            for evt in events
+            if evt.device_type == DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    return {"wall_ms": wall * 1e3, "device_ms": total,
+            "kernels": sum(r[2] for r in rows),
+            "flash_ms": sum(r[1] for r in rows
+                            if "flash_attention_kernel" in r[0]),
+            "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:6]]}
+
+
+def phase_model(torch, state):
+    """Gemma2-9B at its published widths, bf16, random parameters from seed
+    0 on the card: the prefill (`forward`, S = 8192, all 42 layers, one
+    flash-attention launch a layer), then `launch.serve.generate` answering
+    4 requests, then float32 consistency at full width (4 layers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import TransformerLM
+
+    out, problems = {}, []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    cfg = get_config(GEMMA)
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    out["config"] = {"arch": cfg.name, "layers": cfg.num_layers,
+                     "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                                       cfg.num_kv_heads],
+                     "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                     "vocab": cfg.vocab_size, "window": cfg.local_window,
+                     "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+                     "dtype": "bfloat16", "depth_cut": None,
+                     "init_s": time.perf_counter() - t,
+                     "param_bytes": sum(p.numel() * p.element_size()
+                                        for p in model.parameters())}
+
+    # prefill: one warm-up forward (cuBLAS set-up) outside the count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model.forward(torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                                device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_S), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES = 0  # the prefill path's count starts here
+    t = time.perf_counter()
+    logits = model.forward(tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ops.LAUNCHES
+    state["flash_launches"] = launches
+    finite = bool(torch.isfinite(logits).all())
+    out["prefill"] = {
+        "batch": 1, "seq": PREFILL_S, "wall_s": wall,
+        "tokens_per_s": PREFILL_S / wall, "flash_launches": launches,
+        "logits_shape": list(logits.shape),
+        "logits_finite": check(finite, "prefill logits not finite"),
+        "logits_abs_max": float(logits.abs().max()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_ok": check(launches == cfg.num_layers,
+                             f"{launches} flash launches for "
+                             f"{cfg.num_layers} layers")}
+    del logits
+    out["prefill"]["profile"] = device_time_by_kernel(
+        torch, lambda: model.forward(tokens))
+    del tokens
+    torch.cuda.empty_cache()
+
+    # serve: 4 requests, greedy, through launch.serve.generate; one
+    # warm-up run of the same shapes, then SERVE["runs"] timed ones
+    b, plen, ntok = SERVE["batch"], SERVE["prompt"], SERVE["tokens"]
+    prompt = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                           device="cuda")
+    generate(model, model.init_cache(b, plen + ntok), prompt, ntok)
+    walls, answers = [], []
+    before = ops.LAUNCHES
+    for _ in range(SERVE["runs"]):
+        cache = model.init_cache(b, plen + ntok)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        answers.append(generate(model, cache, prompt, ntok))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    serve_launches = ops.LAUNCHES - before  # decode runs no kernel: 0
+    answer, wall = answers[0], sorted(walls)[len(walls) // 2]
+    # one more decode step, profiled (a breakdown only)
+    step_profile = device_time_by_kernel(
+        torch, lambda: model.decode_step(cache, answer[:, -1:],
+                                         plen + ntok - 1))
+    # greedy tokens against the argmax of one forward over prompt + answer
+    full = model.forward(torch.cat([prompt, answer], dim=1))
+    agree = float((full[:, plen - 1:-1].argmax(-1) == answer).float().mean())
+    out["serve"] = {
+        "requests": b, "prompt": plen, "new_tokens": ntok,
+        "reading": "smoke: one batch of 4 requests after one warm-up run, "
+                   "not a serve rate",
+        "wall_s": wall, "wall_s_runs": walls,
+        "tokens_per_s": b * (plen + ntok) / wall,
+        "new_tokens_per_s": b * ntok / wall,
+        "answers_equal_across_runs": all(bool((a == answer).all())
+                                         for a in answers),
+        "decode_steps": plen + ntok, "flash_launches": serve_launches,
+        "greedy_agreement_with_forward_argmax": agree,
+        "answer_ok": check(answer.shape == (b, ntok) and bool(
+            ((answer >= 0) & (answer < cfg.vocab_size)).all()),
+            "serve answer shape or range"),
+        "sample": answer[0, :8].tolist(), "decode_step_profile": step_profile,
+        "card": torch.cuda.get_device_name(0)}
+    del model, cache, full
+    torch.cuda.empty_cache()
+
+    # float32 consistency at full width, two local/global pairs
+    c = CONSISTENCY
+    cfg4 = cfg.with_(num_layers=c["layers"], dtype="float32")
+    model = build_model(cfg4, device="cuda", seed=1)
+    toks = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
+                         generator=gen, device="cuda")
+    before = ops.LAUNCHES
+    full = model.forward(toks)
+    fwd_launches = ops.LAUNCHES - before
+    cache = model.init_cache(c["batch"], c["seq"])
+    steps = []
+    for pos in range(c["seq"]):
+        lg, cache = model.decode_step(cache, toks[:, pos:pos + 1], pos)
+        steps.append(lg[:, 0])
+    dec = torch.stack(steps, dim=1)
+    dec_err = float((dec - full).abs().max())
+    dec_ok = bool(torch.allclose(dec, full, rtol=c["tol"], atol=c["tol"]))
+    t = time.perf_counter()
+    cpu = TransformerLM(cfg4, tree_map(lambda a: a.detach().cpu(),
+                                       model.params.tree()))
+    cpu_full = cpu.forward(toks.cpu())
+    cpu_s = time.perf_counter() - t
+    full_cpu = full.cpu()
+    cpu_err = float((full_cpu - cpu_full).abs().max())
+    cpu_ok = bool(torch.allclose(full_cpu, cpu_full, rtol=c["tol"],
+                                 atol=c["tol"]))
+    out["consistency_fp32"] = {
+        "layers": c["layers"], "batch": c["batch"], "seq": c["seq"],
+        "tol": c["tol"], "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "forward_flash_launches": fwd_launches,
+        "decode_vs_forward_max_abs_err": dec_err,
+        "decode_vs_forward_ok": check(dec_ok, "fp32 decode vs forward"),
+        "card_vs_cpu_max_abs_err": cpu_err, "cpu_forward_s": cpu_s,
+        "card_vs_cpu_ok": check(cpu_ok, "fp32 card forward vs CPU forward"),
+        "logits_abs_max": float(full.abs().max())}
+    del model, cpu, cache, full
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"model path failed its checks: {problems}")
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -649,9 +1029,11 @@ def main():
         smoke.phase("parity", phase_parity, torch)
         smoke.phase("main_path", phase_main_path, torch, state)
         smoke.phase("analysis", phase_analysis, torch, state)
+        smoke.phase("model", phase_model, torch, state)
     launches = {"path_costs": state.get("launches", 0),
                 "minplus": state.get("minplus_launches", 0),
-                "gf_crossprod": state.get("gf_launches", 0)}
+                "gf_crossprod": state.get("gf_launches", 0),
+                "flash_attention": state.get("flash_launches", 0)}
     kernels = [{**state[name], "launches": launches[name]}
                for name in launches if name in state]
     smoke.record["kernels"] = kernels

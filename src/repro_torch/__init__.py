@@ -22,6 +22,13 @@ entry points:
     core.metrics, core.topologies, and backend="sharded" of the blocked
         routing engine (the BFS in PyTorch on the device)
 
+and the dense transformer's prefill and serve paths:
+
+    configs.get_config -> models.build_model -> TransformerLM.forward
+        (every layer's attention on the flash-attention kernel
+        ``kernels/flash_attention/csrc/flash_attention.cu``)
+    TransformerLM.init_cache / decode_step -> launch.serve.generate
+
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
 """

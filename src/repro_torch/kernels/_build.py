@@ -37,6 +37,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "minplus": ("minplus/csrc/path_costs.cu", "minplus/csrc/minplus.cu"),
     "gf_crossprod": ("gf_crossprod/csrc/crossprod.cu",),
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

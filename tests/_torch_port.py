@@ -138,6 +138,38 @@ def adaptive_parity_tests(grid):
     return latency_curve_matches, saturation_matches
 
 
+# -- the model slice ------------------------------------------------------
+
+DENSE = ["gemma2-9b", "qwen2-0.5b", "qwen3-4b", "nemotron-4-340b",
+         "qwen2-vl-72b"]
+
+
+def reference_pair(name):
+    """(JAX model, its float32 params, the port's model on the CPU with the
+    same params) for `name` scaled down; the JAX forward runs its Pallas
+    kernel in interpret mode."""
+    import jax
+
+    from repro.configs import get_config as r_get_config
+    from repro.models import build_model as r_build_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.transformer import TransformerLM
+
+    rcfg = r_get_config(name).scaled_down(dtype="float32")
+    rmodel = r_build_model(rcfg, use_pallas=True, remat="none")
+    rparams = rmodel.init(jax.random.PRNGKey(0))
+    cfg = get_config(name).scaled_down(dtype="float32")
+    port = TransformerLM(cfg, params_from_reference(
+        jax.tree.map(np.asarray, rparams), device="cpu"))
+    return rmodel, rparams, port
+
+
+def tokens_for(cfg, b, s, seed=0):
+    """[b, s] int32 token ids from numpy, seeded."""
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s),
+                                                dtype=np.int32)
+
 
 def _one_thread_per_worker():
     # pytest-xdist runs about one worker per core, and each would start one

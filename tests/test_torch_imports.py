@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 26 else 0)
+sys.exit(1 if bad or missing or len(names) < 51 else 0)
 """ % (sorted([
     # the analysis slice: the §IX APSP and §IV-D routing-table entry
     # points, their kernels' wrappers, the structural metrics and the
@@ -37,6 +37,25 @@ sys.exit(1 if bad or missing or len(names) < 26 else 0)
     "repro_torch.core.topologies",
     "repro_torch.core.routing",
     "repro_torch.parallel.blockwise",
+    # the model slice: the dense transformer's prefill and serve paths,
+    # the flash-attention kernel's wrapper and plain version, the copied
+    # configs
+    "repro_torch.configs",
+    "repro_torch.configs.gemma2_9b",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.models",
+    "repro_torch.models.api",
+    "repro_torch.models.attention",
+    "repro_torch.models.common",
+    "repro_torch.models.config",
+    "repro_torch.models.convert",
+    "repro_torch.models.mlp",
+    "repro_torch.models.rope",
+    "repro_torch.models.transformer",
+    "repro_torch.launch",
+    "repro_torch.launch.serve",
 ]),)
 
 
