@@ -53,31 +53,39 @@ before it and read just after.  Phases, one JSON line each:
              50/30), bf16, random parameters from seed 0, all 42 layers
              (no depth cut): the prefill (`forward` on B = 1, S = 8192)
              with its wall seconds, flash-attention launches (one a
-             layer: 42) and finite logits, and a torch.profiler breakdown
-             of one more prefill; `launch.serve.generate` answering 4
+             layer, all of them the sm90 tensor-core kernel: 42) and
+             finite logits, and a torch.profiler breakdown of one more
+             prefill; `launch.serve.generate` answering 4
              greedy requests (prompt 16, 32 new tokens) after one warm-up
              run, three timed runs and their median tokens/s (a smoke
              reading, not a serve rate), and one profiled decode step;
              then float32 at full width with 4 layers (two local/global
              pairs), B = 2, 48 tokens, TF32 off: step-by-step
-             `decode_step` logits against the kernel-backed `forward`,
+             `decode_step` logits against the kernel-backed `forward`
+             (4 launches, all of them the CUDA-core kernel),
              and the card's `forward` against the port's on the CPU from
              the same parameters, both at rtol = atol = 2e-3
              (tests/test_models.py's decode-vs-forward bar)
 
-The kernels phase also holds flash_attention against its plain version
-at tests/test_kernels.py's five cases and a ragged S = 200, and at the
+The kernels phase also holds both flash-attention kernels against their
+plain version: the sm90 tensor-core kernel (csrc/flash_attention_sm90.cu,
+where `ops.attention` sends bf16 at D = 64, 128, 192, 256) and the
+CUDA-core kernel (csrc/flash_attention.cu, where it sends float32, and in
+bf16 through `ops._launch`, the route bf16 takes at other head dims), at
+tests/test_kernels.py's five cases, a ragged S = 200, nemotron's head dim
+(D = 192, 12 q heads a kv head) and a ragged S = 333 at D = 256, and at the
 prefill's shapes (B = 1, 16/8 heads, S = 8192, D = 256, softcap 50,
-causal, window 4096 and none), each in fp32 and bf16.  fp32 is held at
-2e-6, the JAX test's bar.  bf16 is held at the JAX test's 2e-2 and, element
-by element, within one bf16 rounding of the plain version (2^-7 |ref| +
-1e-5): both compute in fp32 and round once, and at the prefill's shapes,
-where |out| is about 0.01, 2e-2 alone would pass a kernel that drops a
-key.  Kernel, plain and bound times at the prefill's shapes (bf16) and,
-at the same shape without softcap, the kernel's beside
-`scaled_dot_product_attention`'s (the library time; the port never
-calls it).  The flash-attention launches in the kernel table are the
-prefill's.
+causal, window 4096 and none).  fp32 is held at 2e-6, the JAX test's bar.
+bf16 is held at the JAX test's 2e-2 and, element by element, within one
+bf16 rounding of the plain version (2^-7 |ref| + 1e-5): the kernels and
+the plain version compute in fp32 (the sm90 kernel with p split into two
+bf16 operands) and round once, and at the prefill's shapes, where |out|
+is about 0.01, 2e-2 alone would pass a kernel that drops a key.  Both
+kernels' times (bf16), the plain version's and the bound at the prefill's
+shapes and, at the same shape without softcap, the kernels' beside
+`scaled_dot_product_attention`'s (the library time; the port never calls
+it).  In the kernel table the sm90 kernel's launches are the bf16
+prefill's, the CUDA-core kernel's those of the float32 consistency run.
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -111,14 +119,17 @@ GF_SIZES = [(1, 1), (5, 7), (300, 257)]
 FIG14_FRACTIONS = {31: [0.05, 0.2, 0.4, 0.55], 79: [0.05, 0.2]}
 NO_LIBRARY = "no single PyTorch call computes it"
 BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
-# tests/test_kernels.py's flash-attention CASES, then a ragged S:
+# tests/test_kernels.py's flash-attention CASES, then a ragged S, then
+# nemotron's head dim (192, 12 q heads a kv head) and a ragged S at D = 256:
 # b, hq, hkv, s, d, causal, softcap, window
 FLASH_CASES = [(2, 4, 2, 128, 64, True, None, None),
                (1, 4, 4, 256, 64, True, 50.0, None),
                (1, 8, 2, 256, 128, True, None, 128),
                (1, 2, 1, 128, 64, False, None, None),
                (1, 2, 2, 128, 256, True, 30.0, 64),
-               (1, 4, 2, 200, 64, True, 50.0, 48)]
+               (1, 4, 2, 200, 64, True, 50.0, 48),
+               (1, 12, 1, 256, 192, True, None, None),
+               (1, 4, 2, 333, 256, True, 50.0, None)]
 # the JAX test's own bars; the kernel and cuBLAS sum in other orders
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 # bf16 is also held element by element within one bf16 rounding of the
@@ -202,14 +213,37 @@ def phase_device(torch):
             "python": sys.version.split()[0]}
 
 
+def kernel_name(mangled):
+    """The kernel's own name in an Itanium-mangled nested name, with its
+    template arguments as mangled (e.g. "flash_attention_sm90_kernelILi256")."""
+    i, names = 3 if mangled.startswith("_ZN") else 0, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+    if not names:
+        return mangled[:48]
+    return names[-1] + mangled[i:].split("Ev")[0].rstrip("E")[:24]
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
     _build.build_all()
-    logs = _build.build_logs()
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
+    ptxas = {}
+    for name, log in _build.build_logs().items():
+        rows, kernel = [], ""
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln and "'" in ln:
+                kernel = kernel_name(ln.split("'")[1])
+            elif "registers" in ln or "spill" in ln:
+                rows.append(f"{kernel}: {ln.strip()}")
+            elif "C7512" in ln:  # wgmma serialised for want of registers
+                rows.append(ln.strip())
+        ptxas[name] = rows
     return {"libraries": sorted(_build.LIBRARIES), "ptxas": ptxas}
 
 
@@ -486,6 +520,13 @@ def gemma_attention_shape():
 
 
 def kernel_flash_attention(torch, state):
+    """Both flash-attention kernels against the plain version: the sm90
+    tensor-core kernel (bf16 at D in {64, 128, 192, 256}, where
+    `ops.attention` sends bf16) and the CUDA-core kernel in float32 (where
+    `ops.attention` sends float32) and in bf16 (`ops._launch`, the route
+    bf16 takes at other head dims), at FLASH_CASES and at the Gemma2-9B
+    prefill shapes; then both kernels' times at those shapes beside the
+    plain version's, the bound and SDPA's."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -499,9 +540,11 @@ def kernel_flash_attention(torch, state):
             "cuda", dtype) for shape in ((b, hq, s, d), (b, hkv, s, d),
                                          (b, hkv, s, d))]
 
-    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    rows = []
+    worst = {"sm90": {"bfloat16": 0.0},
+             "simt": {"float32": 0.0, "bfloat16": 0.0}}
 
-    def hold(label, out, want):
+    def hold(label, route, out, want):
         """Every element within the dtype's bar of the plain version: the
         JAX test's (FLASH_TOL) and, in bf16, one rounding (FLASH_BF16_BAR)."""
         torch.cuda.synchronize()
@@ -514,61 +557,84 @@ def kernel_flash_attention(torch, state):
         share = float((diff / (bar["atol"] + bar["rtol"] * w.abs())).max())
         ok = bool(torch.isfinite(o).all()) and err <= FLASH_TOL[name] \
             and share <= 1.0
-        worst[name] = max(worst[name], err)
-        rows.append({"case": label, "dtype": name, "max_abs_err": err,
-                     "tol": FLASH_TOL[name], **bar,
+        worst[route][name] = max(worst[route][name], err)
+        rows.append({"case": label, "kernel": route, "dtype": name,
+                     "max_abs_err": err, "tol": FLASH_TOL[name], **bar,
                      "worst_share_of_bar": share, "ok": ok})
         if not ok:
             raise AssertionError(f"flash_attention differs from its plain "
                                  f"version at {label} {name}: {rows[-1]}")
 
+    def routed(x, **kw):
+        """`ops.attention` and the kernel its launch went through."""
+        before = dict(ops.LAUNCHES_BY_KERNEL)
+        out = ops.attention(*x, **kw)
+        used = [k for k, n in ops.LAUNCHES_BY_KERNEL.items()
+                if n != before[k]]
+        if len(used) != 1 or used[0] != ops._route(x[0].dtype,
+                                                    x[0].shape[3]):
+            raise AssertionError(f"attention launched {used} for "
+                                 f"{x[0].dtype} at D = {x[0].shape[3]}")
+        return used[0], out
+
+    def simt(x, causal=True, softcap=None, window=None):
+        return ops._launch(*x, causal, softcap, window, None, "simt")
+
     for case in FLASH_CASES:
         b, hq, hkv, s, d, causal, cap, win = case
+        kw = {"causal": causal, "softcap": cap, "window": win}
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = inputs(b, hq, hkv, s, d, dtype)
-            hold(str(case),
-                 ops.attention(q, k, v, causal=causal, softcap=cap,
-                               window=win),
-                 attention_ref(q, k, v, causal=causal, softcap=cap,
-                               window=win))
+            x = inputs(b, hq, hkv, s, d, dtype)
+            want = attention_ref(*x, **kw)
+            hold(str(case), *routed(x, **kw), want)
+            if dtype == torch.bfloat16:
+                hold(str(case), "simt", simt(x, **kw), want)
     # the prefill's shapes: Gemma2-9B, local (window) and global, in bf16
-    # and in float32 on the same (bf16-exact) inputs at the fp32 bar
+    # (both kernels) and in float32 on the same (bf16-exact) inputs
     b, hq, hkv, s, d, cap, win = gemma_attention_shape()
     q, k, v = inputs(b, hq, hkv, s, d, torch.bfloat16, seed=1)
     times = {}
     for layer, window in (("local", win), ("global", None)):
         label = f"{GEMMA} {layer} {(b, hq, hkv, s, d)} softcap {cap}"
-        for x in ((q, k, v), (q.float(), k.float(), v.float())):
-            hold(label, ops.attention(*x, softcap=cap, window=window),
-                 attention_chunked(*x, softcap=cap, window=window))
+        want = attention_chunked(q, k, v, softcap=cap, window=window)
+        hold(label, *routed((q, k, v), softcap=cap, window=window), want)
+        hold(label, "simt", simt((q, k, v), softcap=cap, window=window),
+             want)
+        x32 = (q.float(), k.float(), v.float())
+        hold(label, *routed(x32, softcap=cap, window=window),
+             attention_chunked(*x32, softcap=cap, window=window))
+        del x32, want
         bound, by_ops, by_bytes = flash_bound_ms(b, hq, hkv, s, d, True,
                                                  window, 2)
-        ms = gpu_ms(torch, lambda: ops.attention(q, k, v, softcap=cap,
-                                                 window=window), samples=10)
+        sm90_ms = gpu_ms(torch, lambda: ops.attention(
+            q, k, v, softcap=cap, window=window), samples=10)
+        simt_ms = gpu_ms(torch, lambda: simt((q, k, v), softcap=cap,
+                                             window=window), samples=10)
         plain = gpu_ms(torch, lambda: attention_chunked(
             q, k, v, softcap=cap, window=window), samples=3, warmup=1)
-        times[layer] = {"window": window, "kernel_ms": ms, "plain_ms": plain,
+        times[layer] = {"window": window, "sm90_ms": sm90_ms,
+                        "simt_bf16_ms": simt_ms, "plain_ms": plain,
                         "bound_ms": bound, "flops_ms": by_ops,
-                        "bytes_ms": by_bytes, "bound_share": bound / ms}
+                        "bytes_ms": by_bytes,
+                        "sm90_bound_share": bound / sm90_ms,
+                        "simt_bound_share": bound / simt_ms}
     # where SDPA computes the same function: causal, no softcap, no window
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
     lib_err = float((sdpa().float() - ops.attention(q, k, v).float()
                      ).abs().max())
-    bound = flash_bound_ms(b, hq, hkv, s, d, True, None, 2)[0]
     times["causal_no_softcap"] = {
-        "kernel_ms": gpu_ms(torch, lambda: ops.attention(q, k, v),
-                            samples=10),
+        "sm90_ms": gpu_ms(torch, lambda: ops.attention(q, k, v),
+                          samples=10),
+        "simt_bf16_ms": gpu_ms(torch, lambda: simt((q, k, v)), samples=10),
         "library_ms": gpu_ms(torch, sdpa, samples=10),
-        "library_max_abs_err": lib_err, "bound_ms": bound}
+        "library_max_abs_err": lib_err,
+        "bound_ms": flash_bound_ms(b, hq, hkv, s, d, True, None, 2)[0]}
     library_ms = times["causal_no_softcap"]["library_ms"]
     g = times["global"]
-    state["flash_attention"] = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+    common = {
+        "route": "cuda",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
-        "max_abs_err": max(worst.values()), "ms": g["kernel_ms"],
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": "operations" if g["flops_ms"] >= g["bytes_ms"]
         else "bytes",
@@ -576,10 +642,23 @@ def kernel_flash_attention(torch, state):
         "library_computes": "scaled_dot_product_attention(is_causal=True, "
                             "enable_gqa=True) at the same shape: causal "
                             "attention without the softcap (less than the "
-                            "kernel does)"}
+                            "kernels do)"}
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    state["flash_attention_sm90"] = {
+        "name": "flash_attention_sm90", **common,
+        "source": src + "flash_attention_sm90.cu",
+        "max_abs_err": worst["sm90"]["bfloat16"], "ms": g["sm90_ms"],
+        "timed_at": f"{GEMMA} global layer, bf16"}
+    state["flash_attention"] = {
+        "name": "flash_attention", **common,
+        "source": src + "flash_attention.cu",
+        "max_abs_err": max(worst["simt"].values()), "ms": g["simt_bf16_ms"],
+        "timed_at": f"{GEMMA} global layer, bf16 (the prefill runs float32 "
+                    f"through it only in the consistency run)"}
     return {"checks": rows, "max_abs_err": worst, "times": times,
             "timed_at": f"{GEMMA} prefill layer, S={s}, bf16",
-            "smem_bytes_d256": ops.smem_bytes(d)}
+            "smem_bytes_d256": {"sm90": ops.smem_bytes(d, "sm90"),
+                                "simt": ops.smem_bytes(d)}}
 
 
 def phase_kernels(torch, state):
@@ -814,7 +893,8 @@ def phase_analysis(torch, state):
 def device_time_by_kernel(torch, fn):
     """Run `fn` once under torch.profiler: {"wall_ms", "device_ms" (the sum
     of the device's kernel and copy times), "kernels" (their number),
-    "flash_ms", "top" (the largest by device time)}.
+    "flash_ms" (both flash-attention kernels), "top" (the largest by
+    device time)}.
     An error of `fn` (a kernel's launch or a CUDA fault) propagates; one of
     the profiler itself is reported in the result under "error", since the
     breakdown checks nothing."""
@@ -848,7 +928,8 @@ def device_time_by_kernel(torch, fn):
     return {"wall_ms": wall * 1e3, "device_ms": total,
             "kernels": sum(r[2] for r in rows),
             "flash_ms": sum(r[1] for r in rows
-                            if "flash_attention_kernel" in r[0]),
+                            if "flash_attention_kernel" in r[0]
+                            or "flash_attention_sm90_kernel" in r[0]),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                     for k, ms, n in rows[:6]]}
 
@@ -897,24 +978,28 @@ def phase_model(torch, state):
                            device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.LAUNCHES = 0  # the prefill path's count starts here
+    ops.LAUNCHES = 0  # the prefill path's counts start here
+    ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0)
     t = time.perf_counter()
     logits = model.forward(tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = ops.LAUNCHES
-    state["flash_launches"] = launches
+    by_kernel = dict(ops.LAUNCHES_BY_KERNEL)
+    state["flash_sm90_launches"] = by_kernel["sm90"]
     finite = bool(torch.isfinite(logits).all())
     out["prefill"] = {
         "batch": 1, "seq": PREFILL_S, "wall_s": wall,
         "tokens_per_s": PREFILL_S / wall, "flash_launches": launches,
+        "flash_launches_by_kernel": by_kernel,
         "logits_shape": list(logits.shape),
         "logits_finite": check(finite, "prefill logits not finite"),
         "logits_abs_max": float(logits.abs().max()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches_ok": check(launches == cfg.num_layers,
-                             f"{launches} flash launches for "
-                             f"{cfg.num_layers} layers")}
+        "launches_ok": check(by_kernel == {"sm90": cfg.num_layers,
+                                           "simt": 0},
+                             f"flash launches {by_kernel} for "
+                             f"{cfg.num_layers} bf16 layers")}
     del logits
     out["prefill"]["profile"] = device_time_by_kernel(
         torch, lambda: model.forward(tokens))
@@ -970,9 +1055,11 @@ def phase_model(torch, state):
     model = build_model(cfg4, device="cuda", seed=1)
     toks = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
                          generator=gen, device="cuda")
-    before = ops.LAUNCHES
+    ops.LAUNCHES = 0  # the float32 path's counts start here
+    ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0)
     full = model.forward(toks)
-    fwd_launches = ops.LAUNCHES - before
+    fwd_launches = dict(ops.LAUNCHES_BY_KERNEL)
+    state["flash_simt_launches"] = fwd_launches["simt"]
     cache = model.init_cache(c["batch"], c["seq"])
     steps = []
     for pos in range(c["seq"]):
@@ -994,6 +1081,9 @@ def phase_model(torch, state):
         "layers": c["layers"], "batch": c["batch"], "seq": c["seq"],
         "tol": c["tol"], "tf32": torch.backends.cuda.matmul.allow_tf32,
         "forward_flash_launches": fwd_launches,
+        "launches_ok": check(fwd_launches == {"sm90": 0,
+                                              "simt": c["layers"]},
+                             f"fp32 flash launches {fwd_launches}"),
         "decode_vs_forward_max_abs_err": dec_err,
         "decode_vs_forward_ok": check(dec_ok, "fp32 decode vs forward"),
         "card_vs_cpu_max_abs_err": cpu_err, "cpu_forward_s": cpu_s,
@@ -1033,7 +1123,8 @@ def main():
     launches = {"path_costs": state.get("launches", 0),
                 "minplus": state.get("minplus_launches", 0),
                 "gf_crossprod": state.get("gf_launches", 0),
-                "flash_attention": state.get("flash_launches", 0)}
+                "flash_attention": state.get("flash_simt_launches", 0),
+                "flash_attention_sm90": state.get("flash_sm90_launches", 0)}
     kernels = [{**state[name], "launches": launches[name]}
                for name in launches if name in state]
     smoke.record["kernels"] = kernels

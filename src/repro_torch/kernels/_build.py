@@ -2,17 +2,20 @@
 
 Each library is one or more ``csrc/*.cu`` files with a plain C interface
 (``extern "C"`` launchers taking raw pointers and a stream, returning
-``cudaGetLastError()``), compiled by hand for Hopper:
+``cudaGetLastError()``), compiled by hand for Hopper, one nvcc per source,
+then linked into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>-<hash>.so <sources>
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c -o <object> <source>
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/kernels/<name>-<hash>.so <objects>
 
 This takes seconds; PyTorch's own extension builder, whose sources include
 PyTorch's headers, takes minutes.  Libraries are built at first use into
 ``build/kernels/`` under the repository root, keyed by a hash of their
 sources and flags, so a fresh checkout builds everything itself and an
-edited source is rebuilt.  `build_all` starts one nvcc per library, all at
-once.  A failed build raises with nvcc's stderr.
+edited source is rebuilt.  `build_all` starts one nvcc per source of every
+library, all at once.  A failed build raises with nvcc's stderr.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and this machine may have no nvcc.
@@ -37,11 +40,13 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "minplus": ("minplus/csrc/path_costs.cu", "minplus/csrc/minplus.cu"),
     "gf_crossprod": ("gf_crossprod/csrc/crossprod.cu",),
-    "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu",
+                        "flash_attention/csrc/flash_attention_sm90.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
@@ -57,45 +62,69 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, List[Path]]:
     sources = [_KERNELS / s for s in LIBRARIES[name]]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so", sources
 
 
-def _start(name: str):
-    """Start nvcc for `name` unless its library is built; returns
-    (target, tmp, process) or None when nothing needs building."""
-    target, sources = _target(name)
-    if target.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+def _run(cmd: List[str], name: str) -> subprocess.Popen:
     try:
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
     except FileNotFoundError as exc:
         raise RuntimeError(f"nvcc not found ({cmd[0]}): cannot build the "
                            f"{name!r} kernels") from exc
-    return target, tmp, proc
+
+
+def _start(name: str):
+    """Start one nvcc a source of `name` unless its library is built;
+    returns (target, [(object, process)]) or None when nothing needs
+    building."""
+    target, sources = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in sources:
+        obj = target.with_suffix(f".{os.getpid()}.{src.stem}.o")
+        jobs.append((obj, _run([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                str(src)], name)))
+    return target, jobs
 
 
 def _finish(name: str, started) -> None:
-    target, tmp, proc = started
-    out, err = proc.communicate()
-    _logs[name] = out + err
-    if proc.returncode != 0:
+    target, jobs = started
+    objs = [obj for obj, _ in jobs]
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        logs, errors = [], []
+        for obj, proc in jobs:
+            out, err = proc.communicate()
+            logs.append(out + err)
+            if proc.returncode != 0:
+                errors.append(f"{obj.name} (exit {proc.returncode}):\n{err}")
+        _logs[name] = "".join(logs)
+        if errors:
+            raise RuntimeError(f"nvcc failed to build the {name!r} kernels: "
+                               + "\n".join(errors))
+        link = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link the {name!r} kernels "
+                               f"(exit {link.returncode}):\n{link.stderr}")
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build the {name!r} kernels "
-                           f"(exit {proc.returncode}):\n{err}")
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def build_all() -> None:
     """Build every library in `LIBRARIES` that is not built yet, one nvcc
-    process per library, all started together."""
+    process per source, all started together."""
     started = {name: _start(name) for name in LIBRARIES}
     errors = []
     for name, st in started.items():

@@ -9,10 +9,12 @@ float32 and bfloat16, at that test's own tolerances (2e-6 and 2e-2), and
 at a ragged S = 200 against `attention_ref` (the Pallas kernel asserts
 that S divides its tile, so it cannot take one).
 
-The CUDA kernel itself runs only on the card: its tests carry the `cuda`
-marker and skip here.  There it is held against the plain version on the
-same card at the same cases, a ragged S, head dims 32 to 256 and both
-dtypes.
+The CUDA kernels themselves run only on the card: their tests carry the
+`cuda` marker and skip here.  There each is held against the plain version
+on the same card at the same cases, a ragged S, head dims 32 to 256 and
+both dtypes: the tensor-core kernel (`csrc/flash_attention_sm90.cu`, bf16 at
+D in {64, 128, 192, 256}) and the CUDA-core one (`csrc/flash_attention.cu`,
+float32, and bf16 at any head dim).
 """
 import numpy as np
 import pytest
@@ -37,6 +39,9 @@ CASES = [
 ]
 RAGGED = (1, 4, 2, 200, 64, True, 50.0, 48)
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}  # tests/test_kernels.py's
+# bf16 on the card: within one bf16 rounding of the plain version, element
+# by element (chip_smoke.FLASH_BF16_BAR)
+BF16_BAR = {"atol": 1e-5, "rtol": 2.0 ** -7}
 
 
 def _inputs(case, seed=0):
@@ -165,29 +170,65 @@ CARD_CASES = CASES + [
     (1, 4, 1, 129, 192, False, 20.0, 50),
     (1, 2, 1, 1, 256, True, 50.0, 4096),
     (1, 16, 8, 1024, 256, True, 50.0, 512),
+    (1, 4, 2, 333, 256, True, 50.0, None),
 ]
+
+
+def _hold_on_card(got, want, dtype):
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=TOL[dtype])
+    if dtype == "bfloat16":
+        g, w = got.float(), want.float()
+        bar = BF16_BAR["atol"] + BF16_BAR["rtol"] * w.abs()
+        assert bool(((g - w).abs() <= bar).all()), \
+            float(((g - w).abs() / bar).max())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_kernel_matches_plain_version_on_card(case, dtype):
-    """The kernel against the plain version on the same card, at the JAX
-    test's tolerances (the kernel sums D and the keys in another order
-    than cuBLAS; both are float32 throughout)."""
+    """The kernel `attention` routes the case to against the plain version
+    on the same card, at the JAX test's tolerances and, in bf16, within one
+    bf16 rounding element by element (the kernels sum D and the keys in
+    another order than cuBLAS; all three compute in float32 and round
+    once).  bf16 goes to the tensor-core kernel except at D = 32; float32
+    always goes to the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     b, hq, hkv, s, d, causal, cap, win = case
     q, k, v = _torch(_inputs(case), dtype, "cuda")
-    before = ops.LAUNCHES
+    route = "simt" if dtype == "float32" or d == 32 else "sm90"
+    assert ops._route(q.dtype, d) == route
+    before, by_kernel = ops.LAUNCHES, dict(ops.LAUNCHES_BY_KERNEL)
     got = ops.attention(q, k, v, causal=causal, softcap=cap, window=win)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
+    assert ops.LAUNCHES_BY_KERNEL == {**by_kernel,
+                                      route: by_kernel[route] + 1}
     want = ref.attention_ref(q, k, v, causal=causal, softcap=cap, window=win)
     assert got.dtype == q.dtype and got.shape == q.shape
-    assert torch.isfinite(got.float()).all()
-    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=TOL[dtype])
+    _hold_on_card(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_cuda_core_kernel_bf16_on_card(case):
+    """The CUDA-core kernel in bf16 at every case, also where `attention`
+    sends bf16 to the tensor-core kernel: the route bf16 takes at any other
+    head dim, held at the same bars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, hq, hkv, s, d, causal, cap, win = case
+    q, k, v = _torch(_inputs(case), "bfloat16", "cuda")
+    before = ops.LAUNCHES_BY_KERNEL["simt"]
+    got = ops._launch(q, k, v, causal, cap, win, None, "simt")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BY_KERNEL["simt"] == before + 1
+    want = ref.attention_ref(q, k, v, causal=causal, softcap=cap, window=win)
+    _hold_on_card(got, want, "bfloat16")
 
 
 @pytest.mark.cuda

@@ -20,9 +20,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_port import (TOL, assert_results_close,  # noqa: E402
-                         flow_paths, hot_dst_pattern, ref_routing,
-                         ref_saturation, to_port)
+from _torch_port import (LATENCY_ITERS, TOL,  # noqa: E402
+                         assert_results_close, flow_paths, hot_dst_pattern,
+                         ref_routing, ref_saturation, to_port)
 
 import repro.simulation as R  # noqa: E402
 from repro.core.polarfly import build_polarfly as r_build_polarfly  # noqa: E402
@@ -197,6 +197,15 @@ def test_not_ported_options_raise():
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ("min",) + ADAPTIVE)
 def test_card_matches_cpu_and_counts_launches(mode):
+    """The solver on the card against the same solver on the CPU, and the
+    path-cost launches it makes.  Oblivious `min` runs no Frank-Wolfe step:
+    held at 1e-5 at load 0.4.  Adaptive modes are held as the adaptive CPU
+    parity tests are: below saturation (0.25, 0.5, 0.75 of the reference's),
+    1000 steps, 1e-3 relative.  At 0.4 after 100 steps ugal_pf sits on the
+    UGAL_PF gate plateau (max_util 0.978) where the iterate is chaotic in
+    its last bits: the card differed from the CPU by 1.8e-4 there, less than
+    the CPU's own 3.0e-4 when every demand moves by one ulp, and by 0 after
+    1000 steps (scripts/fluid_card_sensitivity.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _, tfp = flow_paths(7, "intact", "uniform", mode)
@@ -205,7 +214,17 @@ def test_card_matches_cpu_and_counts_launches(mode):
     adaptive = mode in ADAPTIVE
     # one launch per Frank-Wolfe step, plus the final cost evaluation
     assert ops.LAUNCHES - before == (101 if adaptive else 1)
-    assert_results_close(T.evaluate_load(tfp, 0.4, iters=100, device="cpu"), gpu, 1e-5)
+    if adaptive:
+        sat = ref_saturation(7, "intact", "uniform", mode)
+        loads = [f * sat for f in (0.25, 0.5, 0.75)]
+        cpu = T.latency_curve(tfp, loads, iters=LATENCY_ITERS, device="cpu")
+        card = T.latency_curve(tfp, loads, iters=LATENCY_ITERS,
+                               device="cuda")
+        for a, b in zip(cpu, card):
+            assert_results_close(a, b, 1e-3)
+    else:
+        assert_results_close(T.evaluate_load(tfp, 0.4, iters=100,
+                                             device="cpu"), gpu, 1e-5)
     before = ops.LAUNCHES
     T.saturation_throughput(tfp, tol=TOL, iters=200, device="cuda")
     sched = t_fluid._probe_schedule(200, 7)
