@@ -38,7 +38,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 
 # library name -> its sources, relative to this directory
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
-    "minplus": ("minplus/csrc/path_costs.cu", "minplus/csrc/minplus.cu"),
+    "minplus": ("minplus/csrc/path_costs.cu", "minplus/csrc/minplus.cu",
+                "minplus/csrc/minplus_dpx.cu"),
     "gf_crossprod": ("gf_crossprod/csrc/crossprod.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",
                         "flash_attention/csrc/flash_attention_sm90.cu"),

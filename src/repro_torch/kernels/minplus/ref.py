@@ -16,6 +16,10 @@ import torch
 # headroom so INF + INF does not overflow float32 (the JAX package's INF)
 INF = float(np.float32(3.0e38) / np.float32(4))
 
+# unreachable in the integer APSP route (csrc/minplus_dpx.cu): above every
+# hop count of a graph of at most this many vertices, and twice it fits int16
+HOPS_UNREACHABLE = 16383
+
 # elements of the [rows, k, n] candidate block `minplus_ref` materialises
 # at once (256 MB of float32)
 _CHUNK_ELEMENTS = 1 << 26
@@ -55,6 +59,24 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for lo in range(0, m, rows):
         blk = a[lo:lo + rows, :, None] + b[None, :, :]
         out[lo:lo + rows] = blk.amin(dim=1)
+    return out
+
+
+def minplus_hops_ref(d: torch.Tensor) -> torch.Tensor:
+    """``C[i, j] = min_k D[i, k] + D[k, j]`` of an int16 hop-count matrix
+    with entries in ``[0, HOPS_UNREACHABLE]``; int16.
+
+    The plain version of csrc/minplus_dpx.cu (which reads ``D[j, k]`` for
+    ``D[k, j]``: `apsp` gives it symmetric matrices only).  Sums in int32;
+    none exceeds ``2 * HOPS_UNREACHABLE``, which int16 holds, so the
+    kernel's int16 sums are the same."""
+    n, k = d.shape
+    d32 = d.to(torch.int32)
+    out = torch.empty((n, n), dtype=torch.int16, device=d.device)
+    rows = max(1, _CHUNK_ELEMENTS // max(k * n, 1))
+    for lo in range(0, n, rows):
+        blk = d32[lo:lo + rows, :, None] + d32[None, :, :]
+        out[lo:lo + rows] = blk.amin(dim=1).to(torch.int16)
     return out
 
 

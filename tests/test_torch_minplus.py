@@ -174,7 +174,8 @@ def test_apsp_on_card_matches_cpu(q):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     adj = _damaged(q, 0.2).adjacency
-    before = ops.MINPLUS_LAUNCHES
+    before = ops.MINPLUS_HOPS_LAUNCHES
     got = ops.apsp(adj, device="cuda")
-    assert ops.MINPLUS_LAUNCHES == before + ref.apsp_steps(len(adj))
+    # a symmetric hop-count APSP takes the integer (DPX) route
+    assert ops.MINPLUS_HOPS_LAUNCHES == before + ref.apsp_steps(len(adj))
     assert np.array_equal(got, ops.apsp(adj, device="cpu"))
