@@ -28,8 +28,10 @@ before it and read just after.  Phases, one JSON line each:
              PF(79)'s; minplus_hops (the int16 DPX route `apsp` takes) on
              the same squarings and whole damaged PF(31) and PF(79) APSPs
              against the float route's and PF(31)'s against the plain
-             float APSP; gf_crossprod at q = 2..79 and on PF(31)'s and
-             PF(79)'s full vertex lists.  Kernel, plain and library times
+             float APSP; gf_crossprod at every q in 2..79, composite
+             and prime, at 121, 1290, 46337 and 46340 (the largest q the
+             wrapper takes), at n m = 0, 1, 2, 3 mod 4, and on PF(31)'s
+             and PF(79)'s full vertex lists.  Kernel, plain and library times
              (CUDA events, median of 30 (3 for a plain version slower than
              0.1 s), L2 emptied of the inputs before each sample) beside
              the bound
@@ -535,19 +537,38 @@ def kernel_minplus_hops(torch, state):
             "library_reason": NO_LIBRARY}
 
 
-def gf_ops_per_pair(q):
-    """(int32 multiplies, all int32 operations) of one (i, j) pair in
-    csrc/crossprod.cu, counted from its code: each % as one operation (it
-    is several instructions), mod_q as %, compare and add."""
-    e, bits, ones = q - 2, 0, 0
-    while e > 0:
-        bits, ones, e = bits + 1, ones + (e & 1), e >> 1
-    muls = 6 + bits + ones + 3  # cross, squares, products, normalise
-    cross = 6 + 3 + 3 * 3  # 6 multiplies, 3 subtractions, 3 mod_q
-    lead = 4  # two compares, two selects
-    power = bits * (1 + 3 + 2) + ones * (1 + 3)  # square+mod, loop test
-    normalise = 3 * (1 + 3)
-    return muls, cross + lead + power + normalise
+def gf_ops_per_pair():
+    """(int32 multiplies, all integer instructions) of one (i, j) pair in
+    csrc/crossprod.cu, counted from its code.  A remainder (mod_q) is the
+    four instructions it compiles to: umulhi, multiply-add, subtract, min
+    (two of them multiplies); a cross-product term is two multiply-adds
+    and its remainder; the inverse one index and one shared-memory load.
+    The power table's prologue (q entries a block, 2 log2 q remainders
+    each) is left out: it is not work of the function, and at PF(79) it is
+    under 0.3 % of the pair work."""
+    mod = (2, 4)  # (multiplies, instructions)
+    cross = (3 * (2 + mod[0]), 3 * (2 + mod[1]))  # 3 terms
+    lead = (0, 4)  # two compares, two selects
+    inverse = (0, 2)  # index, LDS.U16
+    normalise = (3 * (1 + mod[0]), 3 * (1 + mod[1]))
+    loads = (1, 4)  # the d row's index and its three loads
+    walk = (0, 2)  # next column, compare
+    store = (0, 3)  # 3 STS.128 + 3 LDS.128 + 3 STG.128 for 4 pairs
+    parts = (cross, lead, inverse, normalise, loads, walk, store)
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
+# q the kernel is held at besides 2..79: a prime (46337) and a composite
+# (46340) at the top of the range the wrapper takes (a 92.7 KB power
+# table).  Shapes: n m = 1, 2, 3 mod 4 in the scalar tail ((7, 1) to
+# (129, 131)); m < 4 over whole 128-pair chunks, where rows change inside
+# a lane's four pairs ((300, 1) on); and, at GF_STRIDE_Q, m < 4 with more
+# chunks than the launcher's wave has warps, so the stride step runs
+GF_LARGE_Q = [46337, 46340]
+GF_EDGE_SIZES = [(7, 1), (9, 2), (11, 3), (129, 131), (300, 1), (97, 2),
+                 (131, 3), (129, 3)]
+GF_STRIDE_Q = [2, 9, 79, 46337]
+GF_STRIDE_SIZES = [(900001, 1), (500001, 2), (300001, 3)]
 
 
 def kernel_gf_crossprod(torch, state):
@@ -559,15 +580,34 @@ def kernel_gf_crossprod(torch, state):
     pf, _ = graphs(state)
     rng = np.random.default_rng(0)
     rows = []
-    for q in (2, 7, 31, 79):
-        for n, m in GF_SIZES:
+    for q in list(range(2, 80)) + [121, 1290] + GF_LARGE_Q:
+        for n, m in GF_SIZES + GF_EDGE_SIZES:
             s = torch.from_numpy(rng.integers(0, q, (n, 3)).astype(
                 np.int32)).cuda()
             d = torch.from_numpy(rng.integers(0, q, (m, 3)).astype(
                 np.int32)).cuda()
+            d[: min(n, m) // 2] = s[: min(n, m) // 2]  # parallel -> zero
             rows.append(held(torch, f"q={q} {(n, m)}",
                              ops.crossprod_normalized(s, d, q),
                              crossprod_normalized_ref(s, d, q)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for q in GF_STRIDE_Q:
+        for n, m in GF_STRIDE_SIZES:
+            s = torch.randint(0, q, (n, 3), generator=gen, device="cuda",
+                              dtype=torch.int32)
+            d = torch.randint(0, q, (m, 3), generator=gen, device="cuda",
+                              dtype=torch.int32)
+            d[: m // 2] = s[: m // 2]  # parallel -> zero
+            rows.append(held(torch, f"q={q} {(n, m)}",
+                             ops.crossprod_normalized(s, d, q),
+                             crossprod_normalized_ref(s, d, q)))
+    # every check above raised unless bit-identical; keep a few in the record
+    checked = {"count": len(rows), "q": "2..79, 121, 1290, 46337, 46340",
+               "sizes": GF_SIZES + GF_EDGE_SIZES,
+               "stride_sizes": {"q": GF_STRIDE_Q, "sizes": GF_STRIDE_SIZES},
+               "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    rows = [r for r in rows if r["shape"].startswith(("q=2 ", "q=9 ",
+                                                      "q=79 ", "q=4634"))]
     times = {}
     for q in (31, 79):
         v = torch.from_numpy(pf[q].vertices.astype(np.int32)).cuda()
@@ -578,7 +618,7 @@ def kernel_gf_crossprod(torch, state):
         ms = gpu_ms(torch, lambda: ops.crossprod_normalized(v, v, q))
         plain = gpu_ms(torch, lambda: crossprod_normalized_ref(v, v, q))
         bytes_moved = 12 * n * n + 2 * 12 * n
-        muls, int_ops = gf_ops_per_pair(q)
+        muls, int_ops = gf_ops_per_pair()
         by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         by_ops = max(muls / INT32_MUL_PER_S,
                      int_ops / INT32_ALU_PER_S) * n * n * 1e3
@@ -593,14 +633,16 @@ def kernel_gf_crossprod(torch, state):
         "name": "gf_crossprod", "route": "cuda",
         "source": "src/repro_torch/kernels/gf_crossprod/csrc/crossprod.cu",
         "replaces": "src/repro/kernels/gf_crossprod/kernel.py:52",
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max([checked["max_abs_err"]]
+                           + [r["max_abs_err"] for r in rows]),
         "ms": t79["kernel_ms"], "plain_ms": t79["plain_ms"],
         "bound_ms": t79["bound_ms"],
         "bound_by": ("bytes" if t79["bytes_ms"] >= t79["ops_ms"]
                      else "operations"),
         "library_ms": None}
-    return {"checks": rows, "times": times, "timed_at": "pf79",
-            "library": None, "library_reason": NO_LIBRARY}
+    return {"checked": checked, "checks": rows, "times": times,
+            "timed_at": "pf79", "library": None,
+            "library_reason": NO_LIBRARY}
 
 
 def attention_pairs(s, causal, window):
@@ -927,6 +969,7 @@ def phase_analysis(torch, state):
                              "pf79 intermediate table")}
     del table
     out["gf_crossprod_launches"] = gf_ops.LAUNCHES
+    check(gf_ops.LAUNCHES == 2, "one gf_crossprod launch per table")
 
     # §IX at PF(31): card diameters against the host resilience sweep
     fr = FIG14_FRACTIONS[31]

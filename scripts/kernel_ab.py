@@ -1,8 +1,8 @@
-"""Times the path-cost and tropical-product kernels of one checkout at the
-shapes the port's paths give them, so two checkouts can be compared on one
-card in one call.
+"""Times the path-cost, tropical-product and GF(q) cross-product kernels of
+one checkout at the shapes the port's paths give them, so two checkouts can
+be compared on one card in one call.
 
-    PYTHONPATH=src python scripts/kernel_ab.py [--tree DIR] [--sweep]
+    PYTHONPATH=src python scripts/kernel_ab.py [--tree DIR] [--sweep] [--split]
 
 `--tree` is the root of a checkout (default: this one); its `src/` is
 imported, so an older checkout unpacked with `git archive` into a
@@ -17,6 +17,20 @@ builds them:
               the links removed (seed 1), on the matrix `apsp` squares
               (`ops.apsp_dist0`, padded to a multiple of 4, where the
               checkout has it; else the n x n matrix)
+  gf_crossprod PF(31)'s and PF(79)'s vertex lists against themselves, as
+              `intermediate_table` calls the kernel; then the wall seconds
+              of `intermediate_table` itself (median of 5) at both sizes
+
+`--split` adds, at PF(79), the split of `intermediate_table` into its
+pieces, timed one by one on this checkout's kernel: the op layer as it was
+before the int32 code (an int64 copy of the [N, N, 3] table, three int64
+passes to form the code, a LUT gather with int64 indices) and as it is now
+(two int32 passes, `index_select` with int32 indices), the LUT's own
+build, the device-to-host copy into a fresh pageable array (what `.cpu()`
+does), into one already touched, and into pinned memory, and the first
+touch of a fresh 160 MB host array.  CUDA events (median of 30, L2
+emptied) for the device pieces, host clock around a synchronised copy
+(median of 5) for the host ones.
 
 Each kernel is first held against its plain version (bit for bit; PF(79)'s
 product on 256 rows), then timed: CUDA events, median of 30 calls, L2
@@ -192,22 +206,110 @@ def sweep(torch, eidx, delay, dists, hops, adjs):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--sweep", action="store_true")
-    args = ap.parse_args()
-    tree = os.path.abspath(args.tree)
-    sys.path.insert(0, os.path.join(tree, "src"))
+def host_s(fn, runs=5):
+    """Median host seconds of `fn()` (which ends in a sync)."""
+    import time
 
-    import torch
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return sorted(times)[len(times) // 2]
 
-    if not torch.cuda.is_available():
-        sys.exit("kernel_ab: needs a CUDA card")
+
+def table_split(torch, v, q):
+    """PF(q)'s `intermediate_table` cut into its pieces and each timed on
+    its own, the op layer in its int64 form (as it was before the int32
+    code) and its int32 form; the cross product is this checkout's kernel
+    in both."""
+    import numpy as np
+
+    from repro_torch.kernels.gf_crossprod import ops
+
+    n = v.shape[0]
+    w = ops.crossprod_normalized(v, v, q)
+    lut = torch.full((q ** 3,), -1, dtype=torch.int32, device="cuda")
+    vl = v.long()
+    vcode = (vl[:, 0] * q + vl[:, 1]) * q + vl[:, 2]
+    lut[vcode] = torch.arange(n, dtype=torch.int32, device="cuda")
+
+    def build_lut():
+        t = torch.full((q ** 3,), -1, dtype=torch.int32, device="cuda")
+        t[vcode] = torch.arange(n, dtype=torch.int32, device="cuda")
+        return t
+
+    def code64():
+        w64 = w.long()
+        return (w64[..., 0] * q + w64[..., 1]) * q + w64[..., 2]
+
+    def code32():
+        code = torch.add(w[..., 1], w[..., 0], alpha=q)
+        return torch.add(w[..., 2], code, alpha=q, out=code)
+
+    c64, c32 = code64(), code32()
+    if not torch.equal(c64, c32.long()):
+        raise AssertionError("int32 code differs from the int64 one")
+    t64, t32 = lut[c64], lut.index_select(0, c32.view(-1)).view(n, n)
+    if not torch.equal(t64, t32):
+        raise AssertionError("index_select differs from the int64 gather")
+    touched = torch.empty((n, n), dtype=torch.int32)
+    touched.fill_(0)
+    pinned = torch.empty((n, n), dtype=torch.int32, pin_memory=True)
+
+    def d2h(dst):
+        def run():
+            dst.copy_(t32)
+            torch.cuda.synchronize()
+        return run
+
+    def fresh():
+        t32.cpu()  # allocates, faults in and fills a new pageable array
+
+    def touch():
+        np.full((n, n), -1, dtype=np.int32)
+
+    torch.cuda.synchronize()
+    return {
+        "kernel_ms": gpu_ms(torch, lambda: ops.crossprod_normalized(v, v, q)),
+        "int64_form": {"copy_and_code_ms": gpu_ms(torch, code64),
+                       "gather_ms": gpu_ms(torch, lambda: lut[c64])},
+        "int32_form": {"code_ms": gpu_ms(torch, code32),
+                       "gather_ms": gpu_ms(
+                           torch, lambda: lut.index_select(0, c32.view(-1)))},
+        "lut_build_ms": gpu_ms(torch, build_lut),
+        "d2h_fresh_pageable_s": host_s(fresh),
+        "d2h_touched_pageable_s": host_s(d2h(touched)),
+        "d2h_pinned_s": host_s(d2h(pinned)),
+        "host_array_first_touch_s": host_s(touch),
+        "table_mb": n * n * 4 / 1e6}
+
+
+def gf_section(torch, rec, split):
+    import numpy as np
+
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.kernels.gf_crossprod import ops
+    from repro_torch.kernels.gf_crossprod.ref import crossprod_normalized_ref
+
+    for q in (31, 79):
+        pf = build_polarfly(q)
+        v = torch.from_numpy(pf.vertices.astype(np.int32)).cuda()
+        same(torch, ops.crossprod_normalized(v, v, q),
+             crossprod_normalized_ref(v, v, q), f"gf_crossprod pf{q}")
+        rec["kernels"][f"gf_crossprod_pf{q}"] = {
+            "shape": [v.shape[0], v.shape[0], 3],
+            "ms": gpu_ms(torch, lambda: ops.crossprod_normalized(v, v, q))}
+        rec["kernels"][f"intermediate_table_pf{q}_wall_s"] = wall_s(
+            torch, lambda: ops.intermediate_table(pf.vertices, q), runs=5)
+        if q == 79 and split:
+            rec["intermediate_table_split_pf79"] = table_split(torch, v, q)
+
+
+def path_costs_section(torch, rec):
     from repro_torch.kernels.minplus import ops
-    from repro_torch.kernels.minplus.ref import minplus_ref, path_costs_ref
+    from repro_torch.kernels.minplus.ref import path_costs_ref
 
-    rec = {"tree": tree, "kernels": {}}
     eidx, delay = path_cost_inputs(torch)
     for dtype in (torch.float32, torch.float64):
         d = delay.to(dtype)
@@ -216,6 +318,13 @@ def main():
         rec["kernels"][f"path_costs_{str(dtype)[6:]}"] = {
             "shape": list(eidx.shape),
             "ms": gpu_ms(torch, lambda: ops.path_costs(d, eidx))}
+    return eidx, delay
+
+
+def minplus_section(torch, rec):
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.kernels.minplus.ref import minplus_ref
+
     dists, adjs, hops = {}, {}, {}
     for q in (31, 79):
         adjs[q] = damaged_adj(q)
@@ -239,6 +348,26 @@ def main():
             torch, lambda: ops.apsp(adjs[q]))
         rec["kernels"][f"diameter_pf{q}_wall_s"] = wall_s(
             torch, lambda: ops.diameter_from_adj(adjs[q]))
+    return dists, adjs, hops
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--split", action="store_true")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab: needs a CUDA card")
+    rec = {"tree": tree, "kernels": {}}
+    gf_section(torch, rec, args.split)
+    eidx, delay = path_costs_section(torch, rec)
+    dists, adjs, hops = minplus_section(torch, rec)
     if args.sweep:
         rec["sweep"] = sweep(torch, eidx, delay, dists, hops, adjs)
     rec["device"] = torch.cuda.get_device_name(0)

@@ -42,12 +42,15 @@ def _launcher():
 
 def crossprod_normalized(s: torch.Tensor, d: torch.Tensor,
                          q: int) -> torch.Tensor:
-    """All-pairs left-normalised GF(q) cross products, prime q only.
+    """All-pairs left-normalised GF(q) cross products (meaningful for
+    prime q; for composite q the kernel still equals the plain version bit
+    for bit).
 
     ``s`` is ``[n, 3]`` and ``d`` ``[m, 3]``, int32, contiguous, entries in
-    ``[0, q)``; returns ``[n, m, 3]`` int32 on their device.  The device
-    chooses the version (the JAX package's ``use_pallas`` does not carry
-    over).
+    ``[0, q)`` (not checked here: that would read the card back on every
+    call; `intermediate_table` checks its vertices on the host), 2 <= q <=
+    46340; returns ``[n, m, 3]`` int32 on their device.  The device chooses
+    the version (the JAX package's ``use_pallas`` does not carry over).
     """
     global LAUNCHES
     if s.dtype != torch.int32 or d.dtype != torch.int32:
@@ -59,8 +62,10 @@ def crossprod_normalized(s: torch.Tensor, d: torch.Tensor,
         raise ValueError("s and d must be contiguous")
     if s.device != d.device:
         raise ValueError(f"s on {s.device} but d on {d.device}")
-    if not 2 <= q < 46341:  # products of two residues stay below 2**31
+    if not 2 <= q <= 46340:  # a biased cross-product term stays below 2**32
         raise ValueError(f"q={q} out of range")
+    if max(s.shape[0], d.shape[0]) > (2 ** 31 - 1) // 3:
+        raise ValueError("more rows than the kernel's int32 offsets reach")
     if s.device.type == "cpu":
         return crossprod_normalized_ref(s, d, q)
     if s.device.type != "cuda":
@@ -80,6 +85,16 @@ def crossprod_normalized(s: torch.Tensor, d: torch.Tensor,
     return out
 
 
+def _vector_code(w: torch.Tensor, q: int) -> torch.Tensor:
+    """(w0 q + w1) q + w2 of each vector of ``w`` ``[..., 3]`` (entries in
+    [0, q)), in two passes: w0 q + w1 < q^2 stays int32; the code is int32
+    while q^3 < 2^31 (q <= 1290), else int64."""
+    code = torch.add(w[..., 1], w[..., 0], alpha=q)
+    if q ** 3 >= 2 ** 31:
+        code = code.long()
+    return torch.add(w[..., 2], code, alpha=q, out=code)
+
+
 def intermediate_table(vertices: np.ndarray, q: int,
                        device: Optional[Union[str, torch.device]] = "cuda"
                        ) -> np.ndarray:
@@ -87,14 +102,21 @@ def intermediate_table(vertices: np.ndarray, q: int,
     q), computed on `device`.
 
     Parallel (s == d) pairs come back as -1.  Device-computed counterpart
-    of `PolarFly.intermediates_all_pairs()`."""
+    of `PolarFly.intermediates_all_pairs()`.
+
+    After the cross product, each normalised vector's code is formed in two
+    passes (`_vector_code`, int32 up to q = 1290) and looked up in the
+    vertex-code table with `index_select`, which takes int32 indices as
+    they are.  The table then comes back to the host."""
+    vertices = np.asarray(vertices, dtype=np.int32)
+    if vertices.size and (vertices.min() < 0 or vertices.max() >= q):
+        raise ValueError(f"vertex entries must lie in [0, {q})")
     dev = resolve_device(device)
-    vt = torch.as_tensor(np.asarray(vertices, dtype=np.int32), device=dev)
-    w = crossprod_normalized(vt.contiguous(), vt.contiguous(), q).long()
-    code = (w[..., 0] * q + w[..., 1]) * q + w[..., 2]
-    del w
+    vt = torch.as_tensor(vertices, device=dev).contiguous()
+    n = len(vt)
+    code = _vector_code(crossprod_normalized(vt, vt, q), q)
     lut = torch.full((q ** 3,), -1, dtype=torch.int32, device=dev)
     v = vt.long()
     lut[(v[:, 0] * q + v[:, 1]) * q + v[:, 2]] = torch.arange(
-        len(vt), dtype=torch.int32, device=dev)
-    return lut[code].cpu().numpy()
+        n, dtype=torch.int32, device=dev)
+    return lut.index_select(0, code.view(-1)).view(n, n).cpu().numpy()

@@ -44,8 +44,10 @@ Where the port must match the reference's arithmetic:
     (``torch.argmin`` documents the same); invalid candidates are masked
     to +inf first in both.
 
-Not ported yet: ``certify=True`` (ROADMAP Queue 1, item 4) and
-``trace=True`` (item 5) raise `NotImplementedError`.  Oblivious modes never
+Not ported yet: ``certify=True`` and the certification knobs ``util_tol``,
+``dtype`` and ``cert_iters`` (ROADMAP Queue 1, item 4), and ``trace=True``
+(item 5) raise `NotImplementedError`; the entry points keep the
+reference's parameter order, with ``device`` last.  Oblivious modes never
 run a Frank-Wolfe step, so their saturations never call the path-cost
 kernel; `evaluate_load` and `latency_curve` do.
 """
@@ -99,10 +101,20 @@ class SaturationResult:
     truncation_err: float
 
 
-def _not_ported(certify: bool, trace: bool) -> None:
+def _not_ported(certify: bool, trace: bool, util_tol=None, dtype=None,
+                cert_iters=None) -> None:
+    """Raise for the reference's options the port does not run yet.  The
+    certification knobs keep the reference's slots so that a positional
+    call cannot bind one of them to another parameter."""
     if certify:
         raise NotImplementedError(
             "certify=True is not ported yet (ROADMAP Queue 1, item 4)")
+    for name, value in (("util_tol", util_tol), ("dtype", dtype),
+                        ("cert_iters", cert_iters)):
+        if value is not None:
+            raise NotImplementedError(
+                f"{name} belongs to the certified engine, which is not "
+                f"ported yet (ROADMAP Queue 1, item 4)")
     if trace:
         raise NotImplementedError(
             "trace=True is not ported yet (ROADMAP Queue 1, item 5)")
@@ -355,11 +367,18 @@ def _as_flow_paths(fp) -> FlowPaths:
 
 
 def evaluate_load(fp, offered: float, iters: int = 250,
-                  certify: bool = False, trace: bool = False,
-                  device="cuda") -> FluidResult:
-    """FluidResult at one offered load, solved on `device`."""
+                  certify: bool = False, util_tol: float = None,
+                  dtype: str = None, cert_iters: int = None,
+                  trace: bool = False, device="cuda") -> FluidResult:
+    """FluidResult at one offered load, solved on `device`.
+
+    The parameters are the reference's, in its order, with `device` last.
+    `certify=True`, the certification knobs `util_tol` / `dtype` /
+    `cert_iters` (anything but None) and `trace=True` raise
+    NotImplementedError until the certified engine and tracing are ported.
+    """
     fp = _as_flow_paths(fp)
-    _not_ported(certify, trace)
+    _not_ported(certify, trace, util_tol, dtype, cert_iters)
     dev = resolve_device(device)
     rec = get_recorder()
     with rec.span("fluid.evaluate_load", mode=fp.mode,
@@ -380,8 +399,10 @@ def evaluate_load(fp, offered: float, iters: int = 250,
 
 
 def saturation_throughput(fp, tol: float = 0.005, iters: int = 250,
-                          engine: str = "batched", return_info: bool = False,
-                          certify: bool = False, trace: bool = False,
+                          engine: str = "batched", probe_iters: int = 0,
+                          return_info: bool = False, certify: bool = False,
+                          util_tol: float = None, dtype: str = None,
+                          cert_iters: int = None, trace: bool = False,
                           device="cuda"):
     """Largest per-endpoint offered load with max link utilization <= 1
     (bisection; adaptive splits re-equilibrate at every probe), solved on
@@ -389,17 +410,25 @@ def saturation_throughput(fp, tol: float = 0.005, iters: int = 250,
 
     engine="batched" (default) runs the bisection with warm-started probes
     and reads one value back at the end; engine="scalar" is the per-probe
-    reference; the batched probes' step counts follow `_probe_schedule`.
-    With `return_info=True` the result is a `SaturationResult` that also
-    carries `truncation_error` at the returned load.
+    reference.  `probe_iters` (batched only) fixes every warm probe's
+    Frank-Wolfe step count; 0 picks the default front-loaded schedule
+    (`_probe_schedule`).  With `return_info=True` the result is a
+    `SaturationResult` that also carries `truncation_error` at the returned
+    load.
+
+    The parameters are the reference's, in its order, with `device` last.
+    `certify=True`, the certification knobs `util_tol` / `dtype` /
+    `cert_iters` (anything but None) and `trace=True` raise
+    NotImplementedError until the certified engine and tracing are ported.
     """
     fp = _as_flow_paths(fp)
-    _not_ported(certify, trace)
+    _not_ported(certify, trace, util_tol, dtype, cert_iters)
     dev = resolve_device(device)
     rec = get_recorder()
     if engine == "batched":
         probes = max(1, int(np.ceil(np.log2(1.0 / tol))))
-        sched = _probe_schedule(iters, probes)
+        sched = ((probe_iters,) * probes if probe_iters > 0
+                 else _probe_schedule(iters, probes))
         with rec.span("fluid.saturation_throughput", mode=fp.mode,
                       probes=probes) as sp:
             sat = float(sp.sync(_saturation_batch(fp, iters, sched, dev)))
@@ -437,13 +466,20 @@ def truncation_error(fp, offered: float, iters: int = 250,
 
 
 def latency_curve(fp, loads, iters: int = 250, engine: str = "batched",
-                  certify: bool = False, trace: bool = False,
-                  device="cuda"):
+                  certify: bool = False, util_tol: float = None,
+                  dtype: str = None, cert_iters: int = None,
+                  trace: bool = False, device="cuda"):
     """FluidResult per offered load, solved on `device`.  engine="batched"
     (default) solves every load at once along a leading load dimension;
-    engine="scalar" calls `evaluate_load` per load (the reference)."""
+    engine="scalar" calls `evaluate_load` per load (the reference).
+
+    The parameters are the reference's, in its order, with `device` last.
+    `certify=True`, the certification knobs `util_tol` / `dtype` /
+    `cert_iters` (anything but None) and `trace=True` raise
+    NotImplementedError until the certified engine and tracing are ported.
+    """
     fp = _as_flow_paths(fp)
-    _not_ported(certify, trace)
+    _not_ported(certify, trace, util_tol, dtype, cert_iters)
     dev = resolve_device(device)
     loads = [float(l) for l in loads]
     if engine == "batched":

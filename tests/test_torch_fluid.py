@@ -15,6 +15,8 @@ Tolerances, and why:
   result moves by more than 1e-3 when its demand moves by one ulp
   (`scripts/reference_sensitivity.py`).
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -192,6 +194,75 @@ def test_not_ported_options_raise():
         T.saturation_throughput(tfp, engine="turbo", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         T.latency_curve(tfp, [0.5], engine="turbo", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["evaluate_load", "saturation_throughput",
+                                  "latency_curve", "truncation_error"])
+def test_entry_points_keep_the_reference_parameter_list(name):
+    """The reference's parameter names, in its order, are a prefix of the
+    port's, and the port's only addition, `device`, comes last: a call
+    with positional arguments binds each to the same parameter in both."""
+    ref = list(inspect.signature(getattr(R, name)).parameters)
+    port = list(inspect.signature(getattr(T, name)).parameters)
+    assert port[:len(ref)] == ref
+    assert port[len(ref):] == ["device"]
+
+
+PROBE_GRID = [(q, mode) for q in (7, 13) for mode in OBLIVIOUS + ADAPTIVE]
+
+
+@pytest.mark.parametrize("q,mode", PROBE_GRID)
+def test_probe_iters_matches_reference(q, mode, monkeypatch):
+    """`probe_iters` in the reference's slot 4, with its meaning: every
+    warm probe of the batched bisection runs `probe_iters` Frank-Wolfe
+    steps.  Oblivious saturations equal the reference's, adaptive ones are
+    within 0.05 (the bar of `adaptive_parity_tests`); a spy shows the
+    batched engine received ``(64,) * probes``."""
+    fp, tfp = flow_paths(q, "intact", "random_perm", mode)
+    seen = []
+    batch = t_fluid._saturation_batch
+
+    def spy(fp, iters, sched, dev):
+        seen.append(sched)
+        return batch(fp, iters, sched, dev)
+
+    monkeypatch.setattr(t_fluid, "_saturation_batch", spy)
+    port = T.saturation_throughput(tfp, TOL, 250, "batched", 64,
+                                   device="cpu")
+    ref = R.saturation_throughput(fp, TOL, 250, "batched", 64)
+    probes = int(np.ceil(np.log2(1.0 / TOL)))
+    assert seen == [(64,) * probes]
+    assert isinstance(port, float)
+    if mode in OBLIVIOUS:
+        assert port == ref
+    else:
+        assert abs(port - ref) <= 0.05
+
+
+def test_default_probe_schedule_without_probe_iters(monkeypatch):
+    """`probe_iters=0` (the default) keeps `_probe_schedule`."""
+    _, tfp = flow_paths(7, "intact", "random_perm", "ugal")
+    seen = []
+    batch = t_fluid._saturation_batch
+    monkeypatch.setattr(t_fluid, "_saturation_batch",
+                        lambda fp, iters, sched, dev: seen.append(sched)
+                        or batch(fp, iters, sched, dev))
+    T.saturation_throughput(tfp, TOL, 120, device="cpu")
+    assert seen == [t_fluid._probe_schedule(120, 7)]
+
+
+@pytest.mark.parametrize("knob,value", [("util_tol", 0.05),
+                                        ("dtype", "float32"),
+                                        ("cert_iters", 512)])
+def test_certification_knobs_raise_until_ported(knob, value):
+    """A certification knob other than None raises, naming the roadmap item
+    that ports the certified engine, in every entry point that has it."""
+    _, tfp = flow_paths(7, "intact", "random_perm", "ugal")
+    for fn, args in ((T.evaluate_load, (0.1,)),
+                     (T.saturation_throughput, ()),
+                     (T.latency_curve, ([0.1],))):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+            fn(tfp, *args, **{knob: value}, device="cpu")
 
 
 @pytest.mark.cuda
