@@ -36,12 +36,34 @@ before it and read just after.  Phases, one JSON line each:
              0.1 s), L2 emptied of the inputs before each sample) beside
              the bound
   parity     PF(13), p = 7, random_perm: the port on the card against the
-             port on the CPU
+             port on the CPU; certified saturations too (ugal, ugal_pf; tol
+             0.05, cert_iters 512: values within 0.06, brackets
+             overlapping, the same kind)
   main_path  PF(31), p = 16, seed 0: uniform and random_perm x {min, ugal,
              ugal_pf} saturations (tol 0.01; iters 250 for min, 1500 for
              the adaptive modes), each with its wall seconds and kernel
              launches, against the JAX package's values recorded in
              tests/fixtures/torch_port_pf31_reference.json
+  certified  the same PF(31) flows through the certified engine
+             (`certify=True`, tol 0.01, the default budget): random_perm
+             ugal and ugal_pf and uniform ugal (the kernel at full width)
+             against the JAX package's certified saturations in
+             tests/fixtures/torch_port_pf31_certified.json: value within
+             0.06, sat_lo and sat_hi each within one tol step of the
+             range the reference's own bracket end spans when its demand
+             moves one ulp up or down (its `ulp_runs`), sat_lo <= value,
+             the same kind, the uncertified fixture value within [sat_lo
+             - 0.06, sat_hi + 0.06]; path-cost launches equal to (probes
+             + 1) + 33 * iters / 32 in each; one float64 certified
+             `evaluate_load` on uniform ugal at half its saturation,
+             512 steps (path_costs_f64 launches only, 2 + 33 * iters /
+             32 of them).  Tracing: the random_perm
+             ugal certified saturation again with trace=True, bit-identical
+             and with trace.final_gap == cert.gap; the main path's
+             random_perm ugal uncertified saturation with trace=True,
+             bit-identical to main_path's value, its solve run under
+             torch.cuda.set_sync_debug_mode("error") (it reads nothing
+             back on the host)
   analysis   §IV-D: `intermediate_table` at PF(31) against the host
              `intermediates_all_pairs()` off the diagonal, and at PF(79)
              on 4096 seeded random pairs against the host
@@ -111,6 +133,8 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "torch_port_pf31_reference.json")
+CERT_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                            "torch_port_pf31_certified.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # Issue rates in lane-instructions a second, 132 SMs x lanes x 1.98 GHz.
@@ -854,6 +878,25 @@ def phase_parity(torch):
                      "max_util_rel": rel, "latency_rel": lat})
         if rel > 1e-3 or abs(sat_gpu - sat_cpu) > sat_tol + 1e-9:
             raise AssertionError(f"card and CPU disagree: {rows[-1]}")
+        if mode == "min":
+            continue
+        # the certified engine, held as tests/test_torch_certified.py's
+        # card test holds it
+        kw = {"tol": 0.05, "certify": True, "cert_iters": 512}
+        cpu = saturation_throughput(fp, device="cpu", **kw)
+        gpu = saturation_throughput(fp, device="cuda", **kw)
+        overlap = max(cpu.sat_lo, gpu.sat_lo) <= min(cpu.sat_hi,
+                                                      gpu.sat_hi) + 1e-9
+        rows.append({"mode": mode, "certified": True,
+                     "value_cpu": cpu.value, "value_gpu": gpu.value,
+                     "bracket_cpu": [cpu.sat_lo, cpu.sat_hi],
+                     "bracket_gpu": [gpu.sat_lo, gpu.sat_hi],
+                     "iters_cpu": cpu.cert.iters, "iters_gpu": gpu.cert.iters,
+                     "kind": gpu.cert.kind})
+        if (abs(gpu.value - cpu.value) > 0.06 or not overlap
+                or gpu.cert.kind != cpu.cert.kind):
+            raise AssertionError(f"certified card and CPU disagree: "
+                                 f"{rows[-1]}")
     return {"config": "PF(13) p=7 random_perm seed 0", "runs": rows}
 
 
@@ -906,6 +949,7 @@ def phase_main_path(torch, state):
                 problems.append(rows[-1])
     state["launches"] = ops.LAUNCHES
     sats = {(r["pattern"], r["mode"]): r["saturation"] for r in rows}
+    state["pf31_routing"], state["main_sats"] = rt, sats
     ratio = sats["random_perm", "ugal"] / max(sats["random_perm", "min"],
                                               1e-9)
     if ratio < 3.5:
@@ -916,6 +960,191 @@ def phase_main_path(torch, state):
     return {"config": "PF(31) p=16 seed 0 k_candidates 10 tol 0.01",
             "routing_setup_s": setup_s, "ugal_over_min_random_perm": ratio,
             "kernel_launches": state["launches"], "runs": rows}
+
+
+def phase_certified(torch, state):
+    """The certified engine and `trace=True` on the main path's PF(31)
+    flows.  The path-cost counts start at 0 here and are read at the
+    end."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.core.routing import build_routing
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.simulation import (build_flow_paths, evaluate_load,
+                                        make_pattern, saturation_throughput)
+    from repro_torch.simulation import fluid
+
+    with open(CERT_FIXTURE) as fh:
+        cref = {(r["pattern"], r["mode"]): r
+                for r in json.load(fh)["saturations"]}
+    with open(FIXTURE) as fh:
+        uref = {(r["pattern"], r["mode"]): r["saturation"]
+                for r in json.load(fh)["saturations"]}
+    tol = 0.01
+    probes = max(1, int(math.ceil(math.log2(1.0 / tol))))
+    rt = state.get("pf31_routing")
+    if rt is None:
+        pf = build_polarfly(31)
+        rt = build_routing(pf.graph, pf)
+    pats = {p: make_pattern(p, rt, p=16, seed=0)
+            for p in ("random_perm", "uniform")}
+    fps = {}
+
+    def flows(pattern, mode):
+        if (pattern, mode) not in fps:
+            fp = build_flow_paths(rt, pats[pattern], mode, k_candidates=10,
+                                  seed=0)
+            fp.device_arrays("cuda")
+            fps[pattern, mode] = fp
+        return fps[pattern, mode]
+
+    rows, problems = [], []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    def certified(pattern, mode, **kw):
+        fp = flows(pattern, mode)
+        torch.cuda.synchronize()
+        before = ops.LAUNCHES
+        t = time.perf_counter()
+        res = saturation_throughput(fp, tol=tol, certify=True,
+                                    device="cuda", **kw)
+        wall = time.perf_counter() - t
+        launches = ops.LAUNCHES - before
+        want = (probes + 1) + 33 * res.cert.iters // 32
+        row = {"pattern": pattern, "mode": mode, "wall_s": wall,
+               "value": res.value, "sat_lo": res.sat_lo,
+               "sat_hi": res.sat_hi, "iters": res.cert.iters,
+               "converged": res.cert.converged, "gap": res.cert.gap,
+               "util_lb": res.cert.util_lb, "util_ub": res.cert.util_ub,
+               "kind": res.cert.kind, "dtype": res.cert.dtype,
+               "launches": launches, "launches_expected": want,
+               "trace": "trace" in kw,
+               "ok": check(launches == want and np.isfinite(res.value)
+                           and res.sat_lo <= res.value + 1e-9,
+                           f"{pattern} {mode} launches or bracket")}
+        return res, row
+
+    ops.LAUNCHES = 0  # the certified path's counts start here
+    ops.LAUNCHES_BY_DTYPE.update(float32=0, float64=0)
+    results = {}
+    for pattern, mode in (("random_perm", "ugal"), ("random_perm", "ugal_pf"),
+                          ("uniform", "ugal")):
+        res, row = certified(pattern, mode)
+        ref, unc = cref[pattern, mode], uref[pattern, mode]
+        # a bracket end within one bisection step of where the reference
+        # puts it at its demand or at its demand moved one ulp either way
+        runs = [ref] + ref["ulp_runs"]
+        band = {end: (min(r[end] for r in runs) - tol - 1e-9,
+                      max(r[end] for r in runs) + tol + 1e-9)
+                for end in ("sat_lo", "sat_hi")}
+        row.update({"reference": {k: ref[k] for k in
+                                  ("value", "sat_lo", "sat_hi")},
+                    "reference_iters": ref["cert"]["iters"],
+                    "reference_ulp_runs": ref["ulp_runs"],
+                    "uncertified_fixture": unc})
+        row["ok"] &= check(
+            abs(res.value - ref["value"]) <= 0.06
+            and band["sat_lo"][0] <= res.sat_lo <= band["sat_lo"][1]
+            and band["sat_hi"][0] <= res.sat_hi <= band["sat_hi"][1]
+            and res.cert.kind == ref["cert"]["kind"]
+            and res.sat_lo - 0.06 <= unc <= res.sat_hi + 0.06,
+            f"{pattern} {mode} against the certified fixture")
+        results[pattern, mode] = res
+        rows.append(row)
+        emit({"phase": "certified.run", **row})
+
+    # float64 at half the uniform saturation: path_costs_f64 only.  It
+    # does not converge within the default 2016 steps either, and it is
+    # held on its launches, dtype and gap, so 512 steps show as much
+    fp = flows("uniform", "ugal")
+    before = (ops.LAUNCHES, dict(ops.LAUNCHES_BY_DTYPE))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    el = evaluate_load(fp, 0.5 * results["uniform", "ugal"].value,
+                       certify=True, dtype="float64", cert_iters=512,
+                       device="cuda")
+    wall = time.perf_counter() - t
+    launches = ops.LAUNCHES - before[0]
+    by_dtype = {k: ops.LAUNCHES_BY_DTYPE[k] - before[1][k]
+                for k in before[1]}
+    want = 2 + 33 * el.cert.iters // 32
+    rows.append({"pattern": "uniform", "mode": "ugal", "dtype": "float64",
+                 "offered": el.value.offered, "wall_s": wall,
+                 "max_util": el.value.max_util, "iters": el.cert.iters,
+                 "converged": el.cert.converged, "gap": el.cert.gap,
+                 "util_lb": el.cert.util_lb, "util_ub": el.cert.util_ub,
+                 "launches": launches, "launches_by_dtype": by_dtype,
+                 "launches_expected": want,
+                 "ok": check(el.cert.dtype == "float64"
+                             and np.isfinite(el.cert.gap)
+                             and launches == want
+                             and by_dtype == {"float32": 0,
+                                              "float64": want},
+                             "float64 evaluate_load")})
+    emit({"phase": "certified.run", **rows[-1]})
+
+    # trace=True: the certified saturation again, bit-identical
+    res, row = certified("random_perm", "ugal", trace=True)
+    plain = results["random_perm", "ugal"]
+    same = (res.value, res.sat_lo, res.sat_hi, res.cert) == (
+        plain.value, plain.sat_lo, plain.sat_hi, plain.cert)
+    row.update({"bit_identical": check(same, "traced certified result"),
+                "final_gap_is_cert_gap": check(
+                    res.trace.final_gap == res.cert.gap,
+                    "trace.final_gap != cert.gap"),
+                "samples": res.trace.num_samples,
+                "probes": res.trace.num_probes})
+    rows.append(row)
+    emit({"phase": "certified.run", **row})
+
+    # trace=True on the uncertified batched saturation: the solve reads
+    # nothing back on the host, so it runs with synchronising calls made
+    # errors
+    fp = flows("random_perm", "ugal")
+    iters = 1500
+    sched = fluid._probe_schedule(iters, probes)
+    before = ops.LAUNCHES
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sat_t, yss, brs = fluid._saturation_batch_traced(
+            fp, iters, sched, torch.device("cuda"))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sat_t = float(sat_t)
+    wall = time.perf_counter() - t
+    launches = ops.LAUNCHES - before
+    pub = saturation_throughput(fp, tol=tol, iters=iters, trace=True,
+                                device="cuda")
+    main = state.get("main_sats", {}).get(("random_perm", "ugal"))
+    rows.append({"pattern": "random_perm", "mode": "ugal",
+                 "uncertified_trace": True, "iters": iters,
+                 "saturation": sat_t, "public_trace": pub.saturation,
+                 "main_path": main, "wall_s": wall, "launches": launches,
+                 "samples": pub.trace.num_samples,
+                 "ok": check(sat_t == pub.saturation == main
+                             and launches == iters + sum(sched)
+                             and pub.trace.num_samples == iters + sum(sched),
+                             "traced uncertified saturation")})
+    emit({"phase": "certified.run", **rows[-1]})
+    state["certified_launches"] = ops.LAUNCHES
+    state["certified_launches_by_dtype"] = dict(ops.LAUNCHES_BY_DTYPE)
+    check(ops.LAUNCHES > 0, "the certified path launched no kernel")
+    if problems:
+        raise AssertionError(f"certified path failed its checks: {problems}")
+    return {"config": "PF(31) p=16 seed 0 k_candidates 10 tol 0.01, "
+                      "default budget",
+            "kernel_launches": ops.LAUNCHES,
+            "kernel_launches_by_dtype": dict(ops.LAUNCHES_BY_DTYPE),
+            "runs": rows}
 
 
 def phase_analysis(torch, state):
@@ -1282,6 +1511,7 @@ def main():
         smoke.phase("kernels", phase_kernels, torch, state)
         smoke.phase("parity", phase_parity, torch)
         smoke.phase("main_path", phase_main_path, torch, state)
+        smoke.phase("certified", phase_certified, torch, state)
         smoke.phase("analysis", phase_analysis, torch, state)
         smoke.phase("model", phase_model, torch, state)
     launches = {"path_costs": state.get("launches", 0),
@@ -1292,6 +1522,13 @@ def main():
                 "flash_attention_sm90": state.get("flash_sm90_launches", 0)}
     kernels = [{**state[name], "launches": launches[name]}
                for name in launches if name in state]
+    for k in kernels:
+        if k["name"] == "path_costs":
+            # the main path's count is `launches`; the certified path's
+            # beside it
+            k["launches_certified"] = state.get("certified_launches", 0)
+            k["launches_certified_by_dtype"] = state.get(
+                "certified_launches_by_dtype")
     smoke.record["kernels"] = kernels
     smi = nvidia_smi()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -12,7 +12,9 @@ of at most `HOPS_UNREACHABLE` vertices is squared as int16 by
 instruction), anything else in float32 by `minplus`; both give the JAX
 package's distances bit for bit.
 
-`LAUNCHES` counts path-cost kernel launches, `MINPLUS_LAUNCHES` float and
+`LAUNCHES` counts path-cost kernel launches (`LAUNCHES_BY_DTYPE` splits
+them by the delay table's dtype, "float32" for `path_costs_f32` and
+"float64" for `path_costs_f64`), `MINPLUS_LAUNCHES` float and
 `MINPLUS_HOPS_LAUNCHES` int16 tropical-product launches (and nothing
 else), so a run can show that its path went through the kernels.
 
@@ -37,10 +39,11 @@ from .ref import (HOPS_UNREACHABLE, INF, adjacency_to_dist0, apsp_steps,
                   minplus_hops_ref, minplus_ref, path_costs_ref)
 
 __all__ = ["path_costs", "minplus", "minplus_hops", "apsp", "apsp_dist0",
-           "apsp_hops0", "diameter_from_adj", "LAUNCHES", "MINPLUS_LAUNCHES",
-           "MINPLUS_HOPS_LAUNCHES"]
+           "apsp_hops0", "diameter_from_adj", "LAUNCHES", "LAUNCHES_BY_DTYPE",
+           "MINPLUS_LAUNCHES", "MINPLUS_HOPS_LAUNCHES"]
 
 LAUNCHES = 0
+LAUNCHES_BY_DTYPE = {"float32": 0, "float64": 0}
 MINPLUS_LAUNCHES = 0
 MINPLUS_HOPS_LAUNCHES = 0
 
@@ -124,6 +127,7 @@ def path_costs(delay: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"path_costs kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(delay.dtype).split(".")[-1]] += 1
     return out
 
 

@@ -1,8 +1,10 @@
-"""repro_torch.obs — spans and counters.
+"""repro_torch.obs — spans, counters and convergence traces.
 
-A copy of the JAX package's ``repro.obs`` recorder, with
-``Span.sync`` draining CUDA work and the profiler annotations built on
-``torch.profiler.record_function``.
+A copy of the JAX package's ``repro.obs``: the recorder, with
+``Span.sync`` draining CUDA work; the profiler annotations, built on
+``torch.profiler.record_function``; the fluid solver's
+``ConvergenceTrace``; and the JSONL report (``python -m
+repro_torch.obs.report``).
 """
 
 from .profiler import named_scope
@@ -14,8 +16,10 @@ from .record import (
     recording,
     set_recorder,
 )
+from .trace import ConvergenceTrace
 
 __all__ = [
+    "ConvergenceTrace",
     "NullRecorder",
     "Recorder",
     "Span",

@@ -138,6 +138,92 @@ def adaptive_parity_tests(grid):
     return latency_curve_matches, saturation_matches
 
 
+# -- the certified engine -------------------------------------------------
+
+_CERT_FP, _CERT_SAT = {}, {}
+CERT_TOL = 0.02  # bisection tolerance of the certified saturation parity
+CERT_ITERS = 3000  # their certified budget (tests/test_certified.py's)
+
+
+def cert_flow_paths(mode, damaged=False):
+    """(reference FlowPaths, port FlowPaths) on the graphs of
+    tests/test_certified.py (cached): PF(13), intact or with every 7th of
+    its first 42 links removed, random_perm traffic, p = 7, seed 0,
+    6 candidates from seed 5."""
+    from repro.core.polarfly import build_polarfly
+    from repro.core.routing import build_routing
+    from repro.simulation import build_flow_paths, make_pattern
+
+    key = (mode, damaged)
+    if key not in _CERT_FP:
+        pf = build_polarfly(13)
+        if damaged:
+            g = pf.graph.subgraph_without_edges(pf.graph.edge_list[::7][:6])
+            rt = build_routing(g)
+        else:
+            rt = build_routing(pf.graph, pf)
+        pat = make_pattern("random_perm", rt, p=7, seed=0)
+        kw = {} if mode == "min" else dict(k_candidates=6, seed=5)
+        fp = build_flow_paths(rt, pat, mode, **kw)
+        _CERT_FP[key] = (fp, to_port(fp))
+    return _CERT_FP[key]
+
+
+def cert_saturations(mode, damaged):
+    """(reference, port) certified saturations at `CERT_TOL` and
+    `CERT_ITERS` on `cert_flow_paths(mode, damaged)` (cached)."""
+    from repro.simulation import saturation_throughput as r_sat
+    from repro_torch.simulation import saturation_throughput as t_sat
+
+    key = (mode, damaged)
+    if key not in _CERT_SAT:
+        fp, tfp = cert_flow_paths(mode, damaged)
+        _CERT_SAT[key] = (
+            r_sat(fp, tol=CERT_TOL, certify=True, cert_iters=CERT_ITERS),
+            t_sat(tfp, tol=CERT_TOL, certify=True, cert_iters=CERT_ITERS,
+                  device="cpu"))
+    return _CERT_SAT[key]
+
+
+def certified_saturation_tests(mode, damaged):
+    """The certified-saturation tests on one graph of
+    `cert_flow_paths`.  Test files take one case each, so that
+    pytest-xdist's per-file distribution spreads the solves (a PF(13) ugal
+    certified saturation is ~11,000 eager steps, ~35 s on one CPU core).
+
+    Port against reference: values within 0.06 (the bar between
+    tests/test_certified.py's certified and batched engines), `sat_lo` and
+    `sat_hi` each within one bisection step (`CERT_TOL`), the same `kind`.
+    Port's certified against port's batched saturation at iters = 3000:
+    within 0.06, with tests/test_certified.py's checks of the certificate
+    and the bracket."""
+    from repro_torch.simulation import CertifiedResult, saturation_throughput
+
+    def port_matches_reference():
+        ref, port = cert_saturations(mode, damaged)
+        assert isinstance(port, CertifiedResult)
+        assert abs(port.value - ref.value) <= 0.06
+        assert abs(port.sat_lo - ref.sat_lo) <= CERT_TOL + 1e-9
+        assert abs(port.sat_hi - ref.sat_hi) <= CERT_TOL + 1e-9
+        assert port.cert.kind == ref.cert.kind
+        assert port.cert.dtype == ref.cert.dtype == "float32"
+
+    def certified_agrees_with_batched():
+        _, tfp = cert_flow_paths(mode, damaged)
+        _, res = cert_saturations(mode, damaged)
+        sat_b = saturation_throughput(tfp, tol=CERT_TOL, iters=CERT_ITERS,
+                                      device="cpu")
+        assert abs(res.value - sat_b) <= 0.06
+        assert res.cert.kind == ("duality-gap" if mode == "ugal"
+                                 else "gated-residual")
+        assert np.isfinite(res.cert.gap)
+        assert res.cert.iters > 0
+        assert res.sat_lo <= res.value + 1e-6
+        assert res.sat_lo <= res.sat_hi + 1e-6
+
+    return port_matches_reference, certified_agrees_with_batched
+
+
 # -- the model slice ------------------------------------------------------
 
 DENSE = ["gemma2-9b", "qwen2-0.5b", "qwen3-4b", "nemotron-4-340b",

@@ -181,15 +181,8 @@ def test_cpu_solves_launch_no_kernel():
     assert ops.LAUNCHES == before
 
 
-def test_not_ported_options_raise():
+def test_unknown_engine_raises():
     _, tfp = flow_paths(7, "intact", "random_perm", "ugal")
-    for fn, args in ((T.evaluate_load, (0.1,)),
-                     (T.saturation_throughput, ()),
-                     (T.latency_curve, ([0.1],))):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-            fn(tfp, *args, certify=True, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-            fn(tfp, *args, trace=True, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         T.saturation_throughput(tfp, engine="turbo", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
@@ -249,20 +242,6 @@ def test_default_probe_schedule_without_probe_iters(monkeypatch):
                         or batch(fp, iters, sched, dev))
     T.saturation_throughput(tfp, TOL, 120, device="cpu")
     assert seen == [t_fluid._probe_schedule(120, 7)]
-
-
-@pytest.mark.parametrize("knob,value", [("util_tol", 0.05),
-                                        ("dtype", "float32"),
-                                        ("cert_iters", 512)])
-def test_certification_knobs_raise_until_ported(knob, value):
-    """A certification knob other than None raises, naming the roadmap item
-    that ports the certified engine, in every entry point that has it."""
-    _, tfp = flow_paths(7, "intact", "random_perm", "ugal")
-    for fn, args in ((T.evaluate_load, (0.1,)),
-                     (T.saturation_throughput, ()),
-                     (T.latency_curve, ([0.1],))):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-            fn(tfp, *args, **{knob: value}, device="cpu")
 
 
 @pytest.mark.cuda
