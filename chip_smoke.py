@@ -6,12 +6,13 @@
 Builds every CUDA kernel of the port from the sources in this checkout
 (nvcc, at first use), holds each kernel against its plain PyTorch version
 on the card, checks the port on the card against the port on the CPU, and
-drives three paths through the public entry points: the paper's §VIII
+drives four paths through the public entry points: the paper's §VIII
 saturation path at PolarFly PF(31) (993 routers, p = 16 endpoints each,
-about 16k endpoints), the structural-analysis path (the §IV-D routing
-table, the §IX diameters under link failure, the blocked routing on the
-device BFS) at PF(31) and at the repo's PF(79) scale tier (6321
-routers), and the dense transformer's prefill and serve paths at
+about 16k endpoints), the flit-level packet engine (tail latency, bursts,
+a link-failure transient) at PF(31), the structural-analysis path (the
+§IV-D routing table, the §IX diameters under link failure, the blocked
+routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
+(6321 routers), and the dense transformer's prefill and serve paths at
 Gemma2-9B's full width.  Each path's kernel counts are set to 0 just
 before it and read just after.  Phases, one JSON line each:
 
@@ -64,6 +65,27 @@ before it and read just after.  Phases, one JSON line each:
              bit-identical to main_path's value, its solve run under
              torch.cuda.set_sync_debug_mode("error") (it reads nothing
              back on the host)
+  packet     the flit-level packet engine at PF(31) (31,744 directed
+             links), bench_fig_tail.py's settings (p = 16, k_candidates
+             8, seed 0, 600 cycles, 4-flit packets, 32-packet queues):
+             uniform min and ugal_pf at offered 0.3, steady and on-off
+             bursts (BurstSchedule(20, 60)); random_perm min, ugal and
+             valiant at 0.1; uniform ugal at 0.3 with 3 links failed at
+             cycle 250.  Each run held against the JAX package's in
+             tests/fixtures/torch_port_pf31_packet.json (sha256 of the
+             workload's arrays and of delivered, dropped,
+             deliver_t[delivered], occ_sum, occ_max; counts; tails) and
+             tests/test_packet_engine.py's conservation spot checks; its
+             wall seconds (a second run after the checked one), cycles
+             and delivered packets a second, packet_peak_bytes.  Four
+             same-shape replicas of the random_perm valiant workload
+             through simulate_packets_batch against their single runs;
+             the failure run again under
+             torch.cuda.set_sync_debug_mode("error"); one cycle of it
+             under torch.profiler (launches, device time, idle share).
+             The engine has no hand-written kernel (the reference's has
+             no Pallas kernel either): it launches PyTorch's own, so it
+             adds no row to the kernel line
   analysis   §IV-D: `intermediate_table` at PF(31) against the host
              `intermediates_all_pairs()` off the diagonal, and at PF(79)
              on 4096 seeded random pairs against the host
@@ -135,6 +157,8 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "torch_port_pf31_reference.json")
 CERT_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                             "torch_port_pf31_certified.json")
+PACKET_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                              "torch_port_pf31_packet.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # Issue rates in lane-instructions a second, 132 SMs x lanes x 1.98 GHz.
@@ -1147,6 +1171,202 @@ def phase_certified(torch, state):
             "runs": rows}
 
 
+def sha(a):
+    """sha256 of an array's dtype, shape and bytes (the hash
+    scripts/make_torch_port_reference.py --packet records)."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def phase_packet(torch, state):
+    """The flit-level packet engine at PF(31) (993 routers, 31,744
+    directed links), bench_fig_tail.py's settings: every run of
+    tests/fixtures/torch_port_pf31_packet.json held against the JAX
+    package's workload and result hashes, counts and tails, a four-replica
+    batch against single runs, one profiled cycle, and one whole run with
+    synchronising calls made errors."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.core.routing import build_routing
+    from repro_torch.simulation import (BurstSchedule,
+                                        build_failure_workload,
+                                        build_flow_paths, make_pattern,
+                                        make_workload, packet_peak_bytes,
+                                        simulate_packets,
+                                        simulate_packets_batch)
+    from repro_torch.simulation import packet
+
+    with open(PACKET_FIXTURE) as fh:
+        fixture = json.load(fh)
+    c = fixture["config"]
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    t0 = time.perf_counter()
+    rt = state.get("pf31_routing")
+    if rt is None:
+        pf = build_polarfly(c["q"])
+        rt = build_routing(pf.graph, pf)
+    g = rt.graph
+    el = g.edge_list
+    rng = np.random.default_rng(0)  # bench_fig_tail.py's failed links
+    rt2 = build_routing(g.subgraph_without_edges(
+        el[rng.choice(len(el), c["failed_links"], replace=False)]))
+    pats = {p: make_pattern(p, rt, p=c["p"], seed=c["seed"])
+            for p in ("uniform", "random_perm")}
+    setup_s = time.perf_counter() - t0
+    kw = dict(size=c["size"], capacity=c["capacity"],
+              max_packets=c["max_packets"])
+    dev = torch.device("cuda")
+    rows, wls = [], {}
+    for ref in fixture["runs"]:
+        key = (ref["pattern"], ref["mode"], ref["scenario"])
+        t = time.perf_counter()
+        if ref["scenario"] == "failure":
+            wl = build_failure_workload(
+                rt, rt2, pats[ref["pattern"]], ref["mode"], ref["offered"],
+                c["cycles"], c["switch_cycle"],
+                k_candidates=c["k_candidates"], seed=c["seed"], **kw)
+        else:
+            fp = build_flow_paths(rt, pats[ref["pattern"]], ref["mode"],
+                                  k_candidates=c["k_candidates"],
+                                  seed=c["seed"])
+            burst = (BurstSchedule(*c["burst"])
+                     if ref["scenario"] == "burst" else None)
+            wl = make_workload(fp, ref["offered"], c["cycles"], burst=burst,
+                               seed=c["seed"], **kw)
+        host_s = time.perf_counter() - t
+        wls[key] = wl
+        wl_ok = check({k: sha(getattr(wl, k)) for k in ref["workload_sha256"]}
+                      == ref["workload_sha256"], f"{key} workload hashes")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = simulate_packets(wl, device="cuda")  # the checked warm-up
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        again = simulate_packets(wl, device="cuda")
+        wall = time.perf_counter() - t
+        got = {"delivered": sha(res.delivered), "dropped": sha(res.dropped),
+               "deliver_t_delivered": sha(res.deliver_t[res.delivered]),
+               "occ_sum": sha(res.occ_sum), "occ_max": sha(res.occ_max)}
+        spot = ((res.occ_max <= wl.capacity).all()
+                and not (res.delivered & res.dropped).any()
+                and res.num_delivered + res.num_dropped
+                + int(res.occ_sum[-1]) <= wl.num_packets
+                and (res.deliver_t[res.delivered]
+                     >= res.inject_t[res.delivered]).all())
+        row = {"pattern": ref["pattern"], "mode": ref["mode"],
+               "offered": ref["offered"], "scenario": ref["scenario"],
+               "flows": wl.num_flows, "packets": wl.num_packets,
+               "delivered": res.num_delivered, "dropped": res.num_dropped,
+               "tails": res.tails(), "workload_hashes_equal": wl_ok,
+               "result_hashes_equal": check(
+                   got == ref["result_sha256"], f"{key} result hashes"),
+               "counts_and_tails_equal": check(
+                   (wl.num_packets, res.num_delivered, res.num_dropped,
+                    res.tails()) == (ref["packets"], ref["delivered"],
+                                     ref["dropped"], ref["tails"]),
+                   f"{key} counts or tails"),
+               "spot_checks": check(spot, f"{key} conservation"),
+               "rerun_equal": check(
+                   all(np.array_equal(getattr(res, f), getattr(again, f))
+                       for f in ("delivered", "dropped", "deliver_t",
+                                 "occ_sum", "occ_max")),
+                   f"{key} second run differs"),
+               "host_workload_s": host_s, "first_run_s": first_s,
+               "wall_s": wall, "cycles_per_s": wl.cycles / wall,
+               "delivered_per_s": res.num_delivered / wall,
+               "ms_per_cycle": 1e3 * wall / wl.cycles,
+               "packet_peak_bytes": packet_peak_bytes(wl)}
+        if ref["scenario"] == "failure":
+            check(res.num_dropped > 0, "the failure run dropped nothing")
+        rows.append(row)
+        emit({"phase": "packet.run", **row})
+
+    # four same-shape replicas of the random_perm valiant workload, as
+    # tests/test_packet_engine.py's batch test builds them
+    wl = wls["random_perm", "valiant", "steady"]
+    rng = np.random.default_rng(5)
+    reps = [wl] + [dataclasses.replace(
+        wl, pkt_cand=wl.pkt_cand[:, rng.permutation(wl.num_packets)])
+        for _ in range(3)]
+    t = time.perf_counter()
+    batch = simulate_packets_batch(reps, device="cuda")
+    batch_s = time.perf_counter() - t
+    singles = [simulate_packets(w, device="cuda") for w in reps]
+    same = all(np.array_equal(getattr(a, f), getattr(b, f))
+               for a, b in zip(batch, singles)
+               for f in ("delivered", "dropped", "deliver_t", "occ_sum",
+                         "occ_max"))
+    rows.append({"batch": len(reps), "pattern": "random_perm",
+                 "mode": "valiant", "wall_s": batch_s,
+                 "equal_to_single_runs": check(same, "batch != singles"),
+                 "delivered": [r.num_delivered for r in batch]})
+    emit({"phase": "packet.batch", **rows[-1]})
+
+    # one whole run (both epochs and the failure transform) with
+    # synchronising calls made errors: the loop reads nothing back
+    key = ("uniform", "ugal", "failure")
+    wl = wls[key]
+    ref = next(r for r in fixture["runs"]
+               if (r["pattern"], r["mode"], r["scenario"]) == key)
+    run = packet._BatchedRun([wl], np.zeros(0, np.int64), dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            run.run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = run.fetch()
+    rows.append({"sync_debug_error_run": list(key), "equal": check(
+        sha(out["occ_max"][:, 0]) == ref["result_sha256"]["occ_max"]
+        and sha(out["delivered"]) == ref["result_sha256"]["delivered"],
+        "the sync-debug run differs")})
+    emit({"phase": "packet.sync", **rows[-1]})
+
+    # one profiled cycle in the middle of the adaptive failure run's
+    # epoch 1, beside the unprofiled per-cycle wall of the same run
+    mid = (wl.switch_cycle + wl.cycles) // 2
+    run = packet._BatchedRun([wl], np.zeros(0, np.int64), dev)
+    with torch.no_grad():
+        run.run(mid)
+        torch.cuda.synchronize()
+        prof = device_time_by_kernel(torch, lambda: run.cycle(mid, 1))
+    per_cycle_ms = next(r["ms_per_cycle"] for r in rows
+                        if (r.get("pattern"), r.get("mode"),
+                            r.get("scenario")) == key)
+    profile = {"cycle": mid, "run": list(key), **prof,
+               "unprofiled_ms_per_cycle": per_cycle_ms}
+    if prof.get("kernels"):  # the profiler saw the card's work
+        profile["idle_share_profiled"] = 1 - prof["device_ms"] / max(
+            prof["wall_ms"], 1e-9)
+        profile["idle_share_unprofiled"] = 1 - prof["device_ms"] / max(
+            per_cycle_ms, 1e-9)
+    emit({"phase": "packet.profile", **profile})
+    if problems:
+        raise AssertionError(f"packet phase failed its checks: {problems}")
+    return {"config": f"PF({c['q']}) p={c['p']} k_candidates "
+                      f"{c['k_candidates']} seed {c['seed']}, {c['cycles']} "
+                      f"cycles, {c['size']}-flit packets, {c['capacity']}"
+                      "-packet queues",
+            "num_links": wls[key].num_links, "routing_setup_s": setup_s,
+            "profile": profile, "runs": rows}
+
+
 def phase_analysis(torch, state):
     """The structural-analysis path on the card: the §IV-D routing table,
     the §IX diameters under link failure, the blocked routing on the
@@ -1512,6 +1732,7 @@ def main():
         smoke.phase("parity", phase_parity, torch)
         smoke.phase("main_path", phase_main_path, torch, state)
         smoke.phase("certified", phase_certified, torch, state)
+        smoke.phase("packet", phase_packet, torch, state)
         smoke.phase("analysis", phase_analysis, torch, state)
         smoke.phase("model", phase_model, torch, state)
     launches = {"path_costs": state.get("launches", 0),

@@ -19,11 +19,25 @@ by a bisection step under a one-ulp change of its input is no sharper
 than that.  About 8 minutes of JAX on the CPU (uniform's 1.24M paths take
 most of it).  Writes `tests/fixtures/torch_port_pf31_certified.json`.
 
+With `--packet` it records the flit-level packet engine's PF(31) runs that
+the smoke script's `packet` phase holds the port against, at
+`benchmarks/bench_fig_tail.py`'s settings (p = 16, `k_candidates=8`,
+seed 0, 600 cycles, 4-flit packets, 32-packet queues): uniform min and
+ugal_pf at offered 0.3, steady and on-off bursts (`BurstSchedule(20,
+60)`); random_perm min, ugal and valiant at 0.1; and uniform ugal at 0.3
+with 3 links failed (`default_rng(0)`) at cycle 250.  Each row holds the
+sha256 of the workload's arrays and of the run's integer outputs
+(`delivered`, `dropped`, `deliver_t[delivered]`, `occ_sum`, `occ_max`),
+its counts and its tails.  About 2 minutes of JAX on the CPU.  Writes
+`tests/fixtures/torch_port_pf31_packet.json`.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --certified
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --packet
 """
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import sys
@@ -38,8 +52,10 @@ import numpy as np  # noqa: E402
 
 from repro.core.polarfly import build_polarfly  # noqa: E402
 from repro.core.routing import build_routing  # noqa: E402
-from repro.simulation import (build_flow_paths, make_pattern,  # noqa: E402
-                              saturation_throughput)
+from repro.simulation import (BurstSchedule,  # noqa: E402
+                              build_failure_workload, build_flow_paths,
+                              make_pattern, make_workload,
+                              saturation_throughput, simulate_packets)
 
 Q, P, SEED, K_CANDIDATES, TOL = 31, 16, 0, 10, 0.01
 ITERS = {"min": 250, "ugal": 1500, "ugal_pf": 1500}
@@ -50,6 +66,20 @@ CERT_RUNS = (("random_perm", "ugal"), ("random_perm", "ugal_pf"),
              ("uniform", "ugal"))
 CERT_OUT = os.path.join(ROOT, "tests", "fixtures",
                         "torch_port_pf31_certified.json")
+PACKET = {"p": 16, "k_candidates": 8, "seed": 0, "cycles": 600,
+          "size": 4, "capacity": 32, "burst": [20, 60], "failed_links": 3,
+          "switch_cycle": 250, "max_packets": 1_000_000}
+# (pattern, mode, offered, scenario): scenario is steady, burst or failure
+PACKET_RUNS = (("uniform", "min", 0.3, "steady"),
+               ("uniform", "min", 0.3, "burst"),
+               ("uniform", "ugal_pf", 0.3, "steady"),
+               ("uniform", "ugal_pf", 0.3, "burst"),
+               ("random_perm", "min", 0.1, "steady"),
+               ("random_perm", "ugal", 0.1, "steady"),
+               ("random_perm", "valiant", 0.1, "steady"),
+               ("uniform", "ugal", 0.3, "failure"))
+PACKET_OUT = os.path.join(ROOT, "tests", "fixtures",
+                          "torch_port_pf31_packet.json")
 
 
 def write(path, doc):
@@ -99,12 +129,78 @@ def certified():
         "saturations": rows})
 
 
+def sha(a):
+    """sha256 of an array's dtype, shape and bytes."""
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def packet():
+    pf = build_polarfly(Q)
+    rt = build_routing(pf.graph, pf)
+    c = PACKET
+    kw = dict(size=c["size"], capacity=c["capacity"],
+              max_packets=c["max_packets"])
+    rng = np.random.default_rng(0)  # bench_fig_tail.py's failed links
+    el = pf.graph.edge_list
+    rt2 = build_routing(pf.graph.subgraph_without_edges(
+        el[rng.choice(len(el), c["failed_links"], replace=False)]))
+    pats = {p: make_pattern(p, rt, p=c["p"], seed=c["seed"])
+            for p in ("uniform", "random_perm")}
+    rows = []
+    for pattern, mode, offered, scenario in PACKET_RUNS:
+        t0 = time.perf_counter()
+        if scenario == "failure":
+            wl = build_failure_workload(
+                rt, rt2, pats[pattern], mode, offered, c["cycles"],
+                c["switch_cycle"], k_candidates=c["k_candidates"],
+                seed=c["seed"], **kw)
+        else:
+            fp = build_flow_paths(rt, pats[pattern], mode,
+                                  k_candidates=c["k_candidates"],
+                                  seed=c["seed"])
+            burst = (BurstSchedule(*c["burst"]) if scenario == "burst"
+                     else None)
+            wl = make_workload(fp, offered, c["cycles"], burst=burst,
+                               seed=c["seed"], **kw)
+        t1 = time.perf_counter()
+        res = simulate_packets(wl)
+        t2 = time.perf_counter()
+        rows.append({
+            "pattern": pattern, "mode": mode, "offered": offered,
+            "scenario": scenario, "packets": wl.num_packets,
+            "flows": wl.num_flows, "num_links": wl.num_links,
+            "delivered": res.num_delivered, "dropped": res.num_dropped,
+            "tails": res.tails(),
+            "workload_sha256": {k: sha(getattr(wl, k)) for k in (
+                "pkt_flow", "pkt_t", "pkt_cand", "eidx", "fail_hop")},
+            "result_sha256": {
+                "delivered": sha(res.delivered), "dropped": sha(res.dropped),
+                "deliver_t_delivered": sha(res.deliver_t[res.delivered]),
+                "occ_sum": sha(res.occ_sum), "occ_max": sha(res.occ_max)},
+            "cpu_workload_s": round(t1 - t0, 1),
+            "cpu_wall_s": round(t2 - t1, 1)})
+        print(json.dumps(rows[-1]), flush=True)
+    write(PACKET_OUT, {
+        "source": "repro (JAX package), batched packet engine, CPU",
+        "script": "scripts/make_torch_port_reference.py --packet",
+        "jax": jax.__version__, "config": {"q": Q, **c},
+        "runs": rows})
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--certified", action="store_true",
                     help="record the certified saturations instead")
-    if ap.parse_args().certified:
+    ap.add_argument("--packet", action="store_true",
+                    help="record the packet engine's runs instead")
+    args = ap.parse_args()
+    if args.certified:
         return certified()
+    if args.packet:
+        return packet()
     pf = build_polarfly(Q)
     rt = build_routing(pf.graph, pf)
     rows = []

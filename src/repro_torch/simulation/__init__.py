@@ -1,9 +1,10 @@
-"""Fluid network simulator reproducing the paper's §VIII evaluation.
+"""Fluid network simulator reproducing the paper's §VIII evaluation, and
+the flit-level packet engine for tail latency under transients.
 
 The fluid engines are all ported: batched and scalar, certified
-(`Certificate`, `CertifiedResult`) and traced (`trace=True`).  The
-flit-level packet engine of the JAX package is not ported yet (ROADMAP
-Queue 1, item 8), so nothing of it is exported here.
+(`Certificate`, `CertifiedResult`) and traced (`trace=True`).  So is the
+packet engine (`simulate_packets`, `simulate_packets_batch`, and the
+scalar reference `simulate_packets_reference`).
 """
 
 from .traffic import TrafficPattern, make_pattern, PATTERNS  # noqa: F401
@@ -13,3 +14,9 @@ from .paths import (FlowPaths, build_flow_paths,  # noqa: F401
 from .fluid import (FluidResult, SaturationResult,  # noqa: F401
                     Certificate, CertifiedResult, evaluate_load,
                     saturation_throughput, truncation_error, latency_curve)
+from .packet import (BurstSchedule, PacketWorkload,  # noqa: F401
+                     PacketResult, make_workload, build_failure_workload,
+                     simulate_packets, simulate_packets_reference,
+                     simulate_packets_batch, packet_peak_bytes,
+                     tail_percentiles, occupancy_histogram,
+                     record_occupancy)

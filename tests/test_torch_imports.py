@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 51 else 0)
+sys.exit(1 if bad or missing or len(names) < 56 else 0)
 """ % (sorted([
     # the analysis slice: the §IX APSP and §IV-D routing-table entry
     # points, their kernels' wrappers, the structural metrics and the
@@ -56,6 +56,11 @@ sys.exit(1 if bad or missing or len(names) < 51 else 0)
     "repro_torch.models.transformer",
     "repro_torch.launch",
     "repro_torch.launch.serve",
+    # the packet slice: the flit-level packet engine, the Algorithm 1
+    # layout and the §VI expansion
+    "repro_torch.simulation.packet",
+    "repro_torch.core.layout",
+    "repro_torch.core.expansion",
 ]),)
 
 
@@ -93,3 +98,26 @@ def test_cuda_default_raises_without_cuda():
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device(dev)
+
+
+def test_packet_engine_needs_cuda_by_default():
+    """`simulate_packets` and `simulate_packets_batch` run on the card
+    unless the caller passes ``device="cpu"``: without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.core.routing import build_routing
+    from repro_torch.simulation import (build_flow_paths, make_pattern,
+                                        make_workload, simulate_packets,
+                                        simulate_packets_batch)
+
+    pf = build_polarfly(3)
+    rt = build_routing(pf.graph, pf)
+    fp = build_flow_paths(rt, make_pattern("uniform", rt, p=2), "min")
+    wl = make_workload(fp, 0.3, 20)
+    assert wl.num_packets > 0
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulate_packets(wl)
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulate_packets_batch([wl, wl])
+    assert simulate_packets(wl, device="cpu").num_delivered > 0
