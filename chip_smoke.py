@@ -12,9 +12,11 @@ about 16k endpoints), the flit-level packet engine (tail latency, bursts,
 a link-failure transient) at PF(31), the structural-analysis path (the
 §IV-D routing table, the §IX diameters under link failure, the blocked
 routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
-(6321 routers), and the dense transformer's prefill and serve paths at
-Gemma2-9B's full width.  Each path's kernel counts are set to 0 just
-before it and read just after.  Phases, one JSON line each:
+(6321 routers), and the prefill and serve paths of the dense transformer
+(Gemma2-9B), the MoE family (deepseek-moe-16b, qwen2-moe-a2.7b) and the
+Griffin hybrid (recurrentgemma-9b), each at its full published width.
+Each path's kernel counts are set to 0 just before it and read just
+after.  Phases, one JSON line each:
 
   device     the card's name and power limit
   build      the nvcc build and its seconds
@@ -119,6 +121,24 @@ before it and read just after.  Phases, one JSON line each:
              and the card's `forward` against the port's on the CPU from
              the same parameters, both at rtol = atol = 2e-3
              (tests/test_models.py's decode-vs-forward bar)
+  moe        the same three steps (`drive_lm`) for deepseek-moe-16b (dense
+             layer0 + 27 MoE layers, 64 experts top-6, 2 shared) and
+             qwen2-moe-a2.7b (24 MoE layers, 60 experts padded to 64,
+             top-4, QKV bias), one after the other, every layer, expert
+             and vocabulary entry (32.8 and 30.4 GB of bf16 parameters,
+             each freed before the next is built): the prefill on B = 1,
+             S = 4096 (the capacity buffers grow with S) with one sm90
+             launch an attention layer (28, 24) and a torch.profiler
+             breakdown (attention, the router, dispatch + combine, the
+             expert GEMMs); the 4-request serve run, dropless; float32
+             at 4 layers with the capacity factor at the padded expert
+             count, so the forward drops nothing either
+  hybrid     the same for recurrentgemma-9b (38 layers: 12 (rec, rec,
+             attn) groups + 2 recurrent ones; windowed MQA, 16 q heads on
+             one kv head of 256, window 2048; 17.2 GB): 12 sm90 launches
+             a prefill, the RG-LRU scan's device time in the breakdown;
+             float32 at 5 layers (one group + 2 tail layers, 1 CUDA-core
+             launch)
 
 The kernels phase also holds both flash-attention kernels against their
 plain version: the sm90 tensor-core kernel (csrc/flash_attention_sm90.cu,
@@ -128,7 +148,11 @@ bf16 through `ops._launch`, the route bf16 takes at other head dims), at
 tests/test_kernels.py's five cases, a ragged S = 200, nemotron's head dim
 (D = 192, 12 q heads a kv head) and a ragged S = 333 at D = 256, and at the
 prefill's shapes (B = 1, 16/8 heads, S = 8192, D = 256, softcap 50,
-causal, window 4096 and none).  fp32 is held at 2e-6, the JAX test's bar.
+causal, window 4096 and none), and the sm90 kernel at the MoE prefill's
+(B = 1, 16/16 heads, S = 4096, D = 128, causal, no softcap, no window:
+SDPA computes the same function there, and its time is the library time)
+and the hybrid prefill's (B = 1, 16/1 heads, S = 4096, D = 256, window
+2048).  fp32 is held at 2e-6, the JAX test's bar.
 bf16 is held at the JAX test's 2e-2 and, element by element, within one
 bf16 rounding of the plain version (2^-7 |ref| + 1e-5): the kernels and
 the plain version compute in fp32 (the sm90 kernel with p split into two
@@ -137,8 +161,10 @@ is about 0.01, 2e-2 alone would pass a kernel that drops a key.  Both
 kernels' times (bf16), the plain version's and the bound at the prefill's
 shapes and, at the same shape without softcap, the kernels' beside
 `scaled_dot_product_attention`'s (the library time; the port never calls
-it).  In the kernel table the sm90 kernel's launches are the bf16
-prefill's, the CUDA-core kernel's those of the float32 consistency run.
+it).  In the kernel table the sm90 kernel's launches are the Gemma2-9B
+bf16 prefill's (the MoE and hybrid prefills' in `launches_by_path`, its
+times at their shapes in `other_path_shapes`), the CUDA-core kernel's
+those of the Gemma2-9B float32 consistency run.
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -212,6 +238,16 @@ PREFILL_S = 8192
 SERVE = {"batch": 4, "prompt": 16, "tokens": 32, "runs": 3}
 # fp32 consistency at full width: two local/global pairs, B = 2, 48 tokens
 CONSISTENCY = {"layers": 4, "batch": 2, "seq": 48, "tol": 2e-3}
+# the MoE family and the hybrid: their prefill at S = 4096 (the capacity
+# buffers grow with S, and three models share the script's time limit);
+# float32 consistency at full width and these depths: deepseek's layer0 +
+# 3 MoE layers, qwen2-moe's 4 (the padded-expert mask, the QKV bias),
+# recurrentgemma's one (rec, rec, attn) group + 2 tail layers
+MOE = ["deepseek-moe-16b", "qwen2-moe-a2.7b"]
+HYBRID = "recurrentgemma-9b"
+NEW_PREFILL_S = 4096
+CONSISTENCY_LAYERS = {GEMMA: CONSISTENCY["layers"], "deepseek-moe-16b": 4,
+                      "qwen2-moe-a2.7b": 4, HYBRID: 5}
 
 
 def emit(obj):
@@ -723,6 +759,22 @@ def gemma_attention_shape():
             cfg.attn_softcap, cfg.local_window)
 
 
+def new_attention_shapes():
+    """[(label, (B, Hq, Hkv, S, D, softcap, window))] of one prefill
+    attention layer of the MoE family and of the hybrid, at their
+    published widths and NEW_PREFILL_S."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for label, arch in (("moe_prefill", MOE[0]), ("hybrid_prefill", HYBRID)):
+        cfg = get_config(arch)
+        window = cfg.local_window if cfg.family == "hybrid" else None
+        out.append((label, (1, cfg.num_heads, cfg.num_kv_heads,
+                            NEW_PREFILL_S, cfg.head_dim, cfg.attn_softcap,
+                            window)))
+    return out
+
+
 def kernel_flash_attention(torch, state):
     """Both flash-attention kernels against the plain version: the sm90
     tensor-core kernel (bf16 at D in {64, 128, 192, 256}, where
@@ -834,6 +886,40 @@ def kernel_flash_attention(torch, state):
         "library_ms": gpu_ms(torch, sdpa, samples=10),
         "library_max_abs_err": lib_err,
         "bound_ms": flash_bound_ms(b, hq, hkv, s, d, True, None, 2)[0]}
+    del q, k, v
+    # the MoE and hybrid prefills' shapes: MHA at D = 128 with neither
+    # softcap nor window (deepseek-moe-16b and qwen2-moe-a2.7b: there SDPA
+    # computes the same function), and windowed MQA at D = 256, 16 q heads
+    # on one kv head (recurrentgemma-9b; SDPA has no window but an explicit
+    # mask, so no library time)
+    for label, (b2, hq2, hkv2, s2, d2, cap2, win2) in new_attention_shapes():
+        x = inputs(b2, hq2, hkv2, s2, d2, torch.bfloat16, seed=2)
+        kw = {"softcap": cap2, "window": win2}
+        full = f"{label} {(b2, hq2, hkv2, s2, d2)} window {win2}"
+        hold(full, *routed(x, **kw), attention_chunked(*x, **kw))
+        bound, by_ops, by_bytes = flash_bound_ms(b2, hq2, hkv2, s2, d2,
+                                                 True, win2, 2)
+        row = {"shape": [b2, hq2, hkv2, s2, d2], "softcap": cap2,
+               "window": win2,
+               "sm90_ms": gpu_ms(torch, lambda: ops.attention(*x, **kw),
+                                 samples=10),
+               "plain_ms": gpu_ms(torch, lambda: attention_chunked(*x, **kw),
+                                  samples=3, warmup=1),
+               "bound_ms": bound, "flops_ms": by_ops, "bytes_ms": by_bytes,
+               "library_ms": None,
+               "library_reason": "scaled_dot_product_attention takes a "
+                                 "window only as an explicit mask"}
+        row["sm90_bound_share"] = bound / row["sm90_ms"]
+        if cap2 is None and win2 is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *x, is_causal=True)
+            row["library_ms"] = gpu_ms(torch, lib, samples=10)
+            row["library_max_abs_err"] = float(
+                (lib().float() - ops.attention(*x).float()).abs().max())
+            row["library_reason"] = "the same function: causal, no softcap, " \
+                                    "no window"
+        times[label] = row
+        del x
     library_ms = times["causal_no_softcap"]["library_ms"]
     g = times["global"]
     common = {
@@ -852,7 +938,11 @@ def kernel_flash_attention(torch, state):
         "name": "flash_attention_sm90", **common,
         "source": src + "flash_attention_sm90.cu",
         "max_abs_err": worst["sm90"]["bfloat16"], "ms": g["sm90_ms"],
-        "timed_at": f"{GEMMA} global layer, bf16"}
+        "timed_at": f"{GEMMA} global layer, bf16",
+        "other_path_shapes": {
+            label: {key: times[label][key] for key in (
+                "shape", "window", "sm90_ms", "plain_ms", "bound_ms",
+                "library_ms")} for label, _ in new_attention_shapes()}}
     state["flash_attention"] = {
         "name": "flash_attention", **common,
         "source": src + "flash_attention.cu",
@@ -1503,11 +1593,13 @@ def phase_analysis(torch, state):
     return out
 
 
-def device_time_by_kernel(torch, fn):
+def device_time_by_kernel(torch, fn, scopes=()):
     """Run `fn` once under torch.profiler: {"wall_ms", "device_ms" (the sum
     of the device's kernel and copy times), "kernels" (their number),
     "flash_ms" (both flash-attention kernels), "top" (the largest by
-    device time)}.
+    device time), "scopes" (the device ms of the kernels launched inside
+    each `named_scope` whose name starts with one of `scopes`, e.g.
+    "moe.experts")}.
     An error of `fn` (a kernel's launch or a CUDA fault) propagates; one of
     the profiler itself is reported in the result under "error", since the
     breakdown checks nothing."""
@@ -1538,7 +1630,10 @@ def device_time_by_kernel(torch, fn):
             and not getattr(evt, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    return {"wall_ms": wall * 1e3, "device_ms": total,
+    named = {evt.key: evt.device_time_total / 1e3 for evt in events
+             if evt.device_type == DeviceType.CPU
+             and evt.key.startswith(tuple(scopes))} if scopes else {}
+    return {"wall_ms": wall * 1e3, "device_ms": total, "scopes": named,
             "kernels": sum(r[2] for r in rows),
             "flash_ms": sum(r[1] for r in rows
                             if "flash_attention_kernel" in r[0]
@@ -1547,38 +1642,79 @@ def device_time_by_kernel(torch, fn):
                     for k, ms, n in rows[:6]]}
 
 
-def phase_model(torch, state):
-    """Gemma2-9B at its published widths, bf16, random parameters from seed
-    0 on the card: the prefill (`forward`, S = 8192, all 42 layers, one
-    flash-attention launch a layer), then `launch.serve.generate` answering
-    4 requests, then float32 consistency at full width (4 layers)."""
-    import numpy as np
+def attention_layers(cfg):
+    """Attention layers of `cfg`'s model: every layer of a transformer
+    (deepseek's layer0 included), one of each (rec, rec, attn) group of
+    the Griffin hybrid."""
+    return cfg.num_layers // 3 if cfg.family == "hybrid" else cfg.num_layers
 
+
+def config_record(cfg):
+    rec = {"arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "window": cfg.local_window,
+           "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+           "dtype": "bfloat16", "depth_cut": None}
+    if cfg.family == "moe":
+        rec.update(experts=[cfg.num_experts, cfg.experts_padded],
+                   top_k=cfg.top_k, shared_d_ff=cfg.shared_d_ff,
+                   first_dense_d_ff=cfg.first_dense_d_ff,
+                   capacity_factor=cfg.moe_capacity_factor)
+    if cfg.family == "hybrid":
+        rec["lru_width"] = cfg.lru_width
+    return rec
+
+
+def breakdown(prof):
+    """Prefill device ms by part from a `device_time_by_kernel` profile:
+    attention (both flash kernels), the MoE router, dispatch + combine and
+    expert GEMMs, the RG-LRU scan, and the rest."""
+    if not prof.get("device_ms"):
+        return {"error": "the profiler traced no device time"}
+    sc = prof["scopes"]
+    parts = {"attention": prof["flash_ms"],
+             "moe_route": sc.get("moe.route", 0.0),
+             "moe_dispatch_combine": sc.get("moe.dispatch", 0.0)
+             + sc.get("moe.combine", 0.0),
+             "moe_experts": sc.get("moe.experts", 0.0),
+             "scan": sc.get("griffin.scan", 0.0)}
+    parts["other"] = prof["device_ms"] - sum(parts.values())
+    return {**parts, "share": {k: v / prof["device_ms"]
+                               for k, v in parts.items()}}
+
+
+def drive_lm(torch, arch, seq):
+    """`arch` at its published widths, bf16, random parameters from seed 0
+    on the card: the prefill (`forward`, B = 1, S = `seq`, all layers, one
+    sm90 flash-attention launch an attention layer and no CUDA-core one),
+    then `launch.serve.generate` answering 4 requests, then float32
+    consistency at full width and CONSISTENCY_LAYERS[arch] layers.
+    Returns (record, sm90 launches of the prefill, CUDA-core launches of
+    the float32 forward); raises if a check failed."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
+    from repro_torch.models.api import model_parts
     from repro_torch.models.common import tree_map
-    from repro_torch.models.transformer import TransformerLM
 
     out, problems = {}, []
+    scopes = ("moe.", "griffin.")
 
     def check(ok, what):
         if not ok:
             problems.append(what)
         return bool(ok)
 
-    cfg = get_config(GEMMA)
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    n_attn = attention_layers(cfg)
     t = time.perf_counter()
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
-    out["config"] = {"arch": cfg.name, "layers": cfg.num_layers,
-                     "d_model": cfg.d_model, "heads": [cfg.num_heads,
-                                                       cfg.num_kv_heads],
-                     "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
-                     "vocab": cfg.vocab_size, "window": cfg.local_window,
-                     "softcaps": [cfg.attn_softcap, cfg.final_softcap],
-                     "dtype": "bfloat16", "depth_cut": None,
+    out["config"] = {**config_record(cfg),
                      "init_s": time.perf_counter() - t,
                      "param_bytes": sum(p.numel() * p.element_size()
                                         for p in model.parameters())}
@@ -1587,7 +1723,7 @@ def phase_model(torch, state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     model.forward(torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
                                 device="cuda"))
-    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_S), generator=gen,
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
                            device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1599,23 +1735,25 @@ def phase_model(torch, state):
     wall = time.perf_counter() - t
     launches = ops.LAUNCHES
     by_kernel = dict(ops.LAUNCHES_BY_KERNEL)
-    state["flash_sm90_launches"] = by_kernel["sm90"]
+    sm90_launches = by_kernel["sm90"]
     finite = bool(torch.isfinite(logits).all())
     out["prefill"] = {
-        "batch": 1, "seq": PREFILL_S, "wall_s": wall,
-        "tokens_per_s": PREFILL_S / wall, "flash_launches": launches,
+        "batch": 1, "seq": seq, "wall_s": wall,
+        "tokens_per_s": seq / wall, "flash_launches": launches,
         "flash_launches_by_kernel": by_kernel,
+        "attention_layers": n_attn,
         "logits_shape": list(logits.shape),
         "logits_finite": check(finite, "prefill logits not finite"),
         "logits_abs_max": float(logits.abs().max()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches_ok": check(by_kernel == {"sm90": cfg.num_layers,
-                                           "simt": 0},
-                             f"flash launches {by_kernel} for "
-                             f"{cfg.num_layers} bf16 layers")}
+        "launches_ok": check(by_kernel == {"sm90": n_attn, "simt": 0},
+                             f"flash launches {by_kernel} for {n_attn} "
+                             f"bf16 attention layers")}
     del logits
-    out["prefill"]["profile"] = device_time_by_kernel(
-        torch, lambda: model.forward(tokens))
+    prof = device_time_by_kernel(torch, lambda: model.forward(tokens),
+                                 scopes)
+    out["prefill"]["profile"] = prof
+    out["prefill"]["breakdown_ms"] = breakdown(prof)
     del tokens
     torch.cuda.empty_cache()
 
@@ -1639,8 +1777,9 @@ def phase_model(torch, state):
     # one more decode step, profiled (a breakdown only)
     step_profile = device_time_by_kernel(
         torch, lambda: model.decode_step(cache, answer[:, -1:],
-                                         plen + ntok - 1))
+                                         plen + ntok - 1), scopes)
     # greedy tokens against the argmax of one forward over prompt + answer
+    # (an MoE forward routes with drops, its decode dropless)
     full = model.forward(torch.cat([prompt, answer], dim=1))
     agree = float((full[:, plen - 1:-1].argmax(-1) == answer).float().mean())
     out["serve"] = {
@@ -1650,6 +1789,7 @@ def phase_model(torch, state):
         "wall_s": wall, "wall_s_runs": walls,
         "tokens_per_s": b * (plen + ntok) / wall,
         "new_tokens_per_s": b * ntok / wall,
+        "ms_per_step": wall / (plen + ntok) * 1e3,
         "answers_equal_across_runs": all(bool((a == answer).all())
                                          for a in answers),
         "decode_steps": plen + ntok, "flash_launches": serve_launches,
@@ -1657,22 +1797,29 @@ def phase_model(torch, state):
         "answer_ok": check(answer.shape == (b, ntok) and bool(
             ((answer >= 0) & (answer < cfg.vocab_size)).all()),
             "serve answer shape or range"),
-        "sample": answer[0, :8].tolist(), "decode_step_profile": step_profile,
+        "answers": answer.tolist(), "decode_step_profile": step_profile,
         "card": torch.cuda.get_device_name(0)}
+    check(serve_launches == 0, f"decode launched {serve_launches} flash "
+                               f"kernels")
     del model, cache, full
     torch.cuda.empty_cache()
 
-    # float32 consistency at full width, two local/global pairs
+    # float32 consistency at full width and reduced depth
     c = CONSISTENCY
-    cfg4 = cfg.with_(num_layers=c["layers"], dtype="float32")
-    model = build_model(cfg4, device="cuda", seed=1)
+    over = {"num_layers": CONSISTENCY_LAYERS[arch], "dtype": "float32"}
+    if cfg.family == "moe":
+        # capacity = int(E * T * K / E) = T * K exactly: the forward drops
+        # nothing, as the dropless decode; a factor of E / K can round one
+        # below T * K and drop a slot
+        over["moe_capacity_factor"] = float(cfg.experts_padded)
+    cfg_c = cfg.with_(**over)
+    model = build_model(cfg_c, device="cuda", seed=1)
     toks = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
                          generator=gen, device="cuda")
     ops.LAUNCHES = 0  # the float32 path's counts start here
     ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0)
     full = model.forward(toks)
     fwd_launches = dict(ops.LAUNCHES_BY_KERNEL)
-    state["flash_simt_launches"] = fwd_launches["simt"]
     cache = model.init_cache(c["batch"], c["seq"])
     steps = []
     for pos in range(c["seq"]):
@@ -1682,8 +1829,8 @@ def phase_model(torch, state):
     dec_err = float((dec - full).abs().max())
     dec_ok = bool(torch.allclose(dec, full, rtol=c["tol"], atol=c["tol"]))
     t = time.perf_counter()
-    cpu = TransformerLM(cfg4, tree_map(lambda a: a.detach().cpu(),
-                                       model.params.tree()))
+    cpu = model_parts(cfg_c)[1](cfg_c, tree_map(lambda a: a.detach().cpu(),
+                                                model.params.tree()))
     cpu_full = cpu.forward(toks.cpu())
     cpu_s = time.perf_counter() - t
     full_cpu = full.cpu()
@@ -1691,12 +1838,14 @@ def phase_model(torch, state):
     cpu_ok = bool(torch.allclose(full_cpu, cpu_full, rtol=c["tol"],
                                  atol=c["tol"]))
     out["consistency_fp32"] = {
-        "layers": c["layers"], "batch": c["batch"], "seq": c["seq"],
+        "layers": cfg_c.num_layers, "batch": c["batch"], "seq": c["seq"],
         "tol": c["tol"], "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "capacity_factor": cfg_c.moe_capacity_factor
+        if cfg.family == "moe" else None,
         "forward_flash_launches": fwd_launches,
-        "launches_ok": check(fwd_launches == {"sm90": 0,
-                                              "simt": c["layers"]},
-                             f"fp32 flash launches {fwd_launches}"),
+        "launches_ok": check(fwd_launches == {
+            "sm90": 0, "simt": attention_layers(cfg_c)},
+            f"fp32 flash launches {fwd_launches}"),
         "decode_vs_forward_max_abs_err": dec_err,
         "decode_vs_forward_ok": check(dec_ok, "fp32 decode vs forward"),
         "card_vs_cpu_max_abs_err": cpu_err, "cpu_forward_s": cpu_s,
@@ -1704,9 +1853,37 @@ def phase_model(torch, state):
         "logits_abs_max": float(full.abs().max())}
     del model, cpu, cache, full
     torch.cuda.empty_cache()
+    out["model_seconds"] = time.perf_counter() - t0
     if problems:
-        raise AssertionError(f"model path failed its checks: {problems}")
+        raise AssertionError(f"{arch} failed its checks: {problems}")
+    return out, sm90_launches, fwd_launches["simt"]
+
+
+def phase_model(torch, state):
+    """Gemma2-9B: the prefill at S = 8192 (all 42 layers), serve, float32
+    consistency at 4 layers (`drive_lm`)."""
+    out, sm90, simt = drive_lm(torch, GEMMA, PREFILL_S)
+    state["flash_sm90_launches"] = sm90
+    state["flash_simt_launches"] = simt
     return out
+
+
+def phase_moe(torch, state):
+    """deepseek-moe-16b, then qwen2-moe-a2.7b (`drive_lm`, S = 4096): 28
+    and 24 sm90 launches a prefill."""
+    out = {}
+    for arch in MOE:
+        out[arch], sm90, _ = drive_lm(torch, arch, NEW_PREFILL_S)
+        state.setdefault("flash_sm90_launches_by_path", {})[arch] = sm90
+    return out
+
+
+def phase_hybrid(torch, state):
+    """recurrentgemma-9b (`drive_lm`, S = 4096): 12 sm90 launches a
+    prefill, the RG-LRU scan on the other 26 layers."""
+    out, sm90, _ = drive_lm(torch, HYBRID, NEW_PREFILL_S)
+    state.setdefault("flash_sm90_launches_by_path", {})[HYBRID] = sm90
+    return {HYBRID: out}
 
 
 def main():
@@ -1735,6 +1912,8 @@ def main():
         smoke.phase("packet", phase_packet, torch, state)
         smoke.phase("analysis", phase_analysis, torch, state)
         smoke.phase("model", phase_model, torch, state)
+        smoke.phase("moe", phase_moe, torch, state)
+        smoke.phase("hybrid", phase_hybrid, torch, state)
     launches = {"path_costs": state.get("launches", 0),
                 "minplus": state.get("minplus_launches", 0),
                 "minplus_hops": state.get("minplus_hops_launches", 0),
@@ -1744,6 +1923,12 @@ def main():
     kernels = [{**state[name], "launches": launches[name]}
                for name in launches if name in state]
     for k in kernels:
+        if k["name"] == "flash_attention_sm90":
+            # `launches` is the Gemma2-9B prefill's; the MoE and hybrid
+            # prefills' beside it
+            k["launches_by_path"] = {
+                GEMMA: k["launches"],
+                **state.get("flash_sm90_launches_by_path", {})}
         if k["name"] == "path_costs":
             # the main path's count is `launches`; the certified path's
             # beside it

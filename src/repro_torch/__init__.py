@@ -22,12 +22,17 @@ entry points:
     core.metrics, core.topologies, and backend="sharded" of the blocked
         routing engine (the BFS in PyTorch on the device)
 
-and the dense transformer's prefill and serve paths:
+the prefill and serve paths of the dense and MoE transformers and the
+Griffin hybrid:
 
-    configs.get_config -> models.build_model -> TransformerLM.forward
-        (every layer's attention on the flash-attention kernel
-        ``kernels/flash_attention/csrc/flash_attention.cu``)
-    TransformerLM.init_cache / decode_step -> launch.serve.generate
+    configs.get_config -> models.build_model -> TransformerLM.forward /
+        GriffinLM.forward (every attention layer on the flash-attention
+        kernels ``kernels/flash_attention/csrc/flash_attention_sm90.cu``
+        (bf16) and ``flash_attention.cu``)
+    init_cache / decode_step -> launch.serve.generate
+
+and the fabric cost models (``fabric.place_pod``, the collectives; host
+numpy, the link rate given by the caller).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.

@@ -2,12 +2,15 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --preset full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --preset full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --preset full
 
 The JAX package's ``launch/serve.py`` on the port: random parameters from
 ``--seed``, a random prompt, the prompt fed token by token through the
 decode step (the fused prefill is ``model.forward``), then greedy
 (``--temperature 0``) or sampled decoding.  Runs on the card unless
-``--device cpu``.  Only the dense family is ported.
+``--device cpu``.  The dense, MoE and hybrid (Griffin) families are
+ported; MoE decode routes dropless, as the reference's does.
 """
 
 from __future__ import annotations

@@ -13,15 +13,17 @@ The logical axes are kept for the sharding slice (`param_specs` waits for
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..device import resolve_device
 
 __all__ = ["ParamDef", "init_params", "stack_defs", "rms_norm", "dtype_of",
-           "count_params", "embed_lookup", "tree_map"]
+           "count_params", "embed_lookup", "tree_map", "ParamTree",
+           "LanguageModel"]
 
 # fill a large tensor this many elements at a time, so the float32 draw
 # beside a bfloat16 [layers, d, d_ff] stack stays small
@@ -32,7 +34,7 @@ _INIT_CHUNK = 1 << 26
 class ParamDef:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]
-    init: str = "fan_in"  # fan_in | zeros
+    init: str = "fan_in"  # fan_in | normal | zeros | ones
     fan_dims: Tuple[int, ...] = (0,)  # dims whose product is fan-in
     scale: float = 1.0
 
@@ -66,11 +68,15 @@ def _init_one(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
-    if d.init != "fan_in":
-        raise NotImplementedError(
-            f"init {d.init!r}: the dense family uses fan_in and zeros only")
-    fan = float(np.prod([d.shape[i] for i in d.fan_dims])) or 1.0
-    std = d.scale / np.sqrt(fan)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "normal":
+        std = d.scale
+    elif d.init == "fan_in":  # variance scaling
+        fan = float(np.prod([d.shape[i] for i in d.fan_dims])) or 1.0
+        std = d.scale / np.sqrt(fan)
+    else:
+        raise ValueError(f"unknown init {d.init!r}")
     out = torch.empty(d.shape, dtype=dtype, device=device)
     flat = out.view(-1)
     for start in range(0, flat.numel(), _INIT_CHUNK):
@@ -86,8 +92,9 @@ def _init_one(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
 def init_params(defs: Any, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device: Union[str, torch.device, None] = "cuda") -> Any:
-    """A tree of tensors of `defs`' shapes on `device`: zeros as declared,
-    else a normal truncated at +-2 std times ``scale / sqrt(fan)``, drawn in
+    """A tree of tensors of `defs`' shapes on `device`: zeros or ones as
+    declared, else a normal truncated at +-2 std times ``scale`` ("normal")
+    or ``scale / sqrt(fan)`` ("fan_in"), drawn in
     float32 from `generator` (which must live on `device`) and cast to
     `dtype`."""
     dev = resolve_device(device)
@@ -124,3 +131,60 @@ def count_params(tree: Any) -> int:
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows `tokens` of `table` (the JAX package's gather path, no mesh)."""
     return table[tokens]
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as registered, frozen parameters, so that
+    ``state_dict`` names follow the JAX tree ("layers.attn.wq")."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, ParamTree(value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def tree(self) -> Dict[str, Any]:
+        out = {n: m.tree() for n, m in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        return out
+
+
+class LanguageModel(nn.Module):
+    """What the port's LMs share: `params` checked against their table
+    `table` (shapes, name for name) and held as frozen parameters, and the
+    embedding and unembedding the JAX models compute alike."""
+
+    def __init__(self, cfg, params: Dict[str, Any], table: Dict[str, Any]):
+        super().__init__()
+        want = tree_map(lambda d: tuple(d.shape), table)
+        got = tree_map(lambda t: tuple(t.shape), params)
+        if want != got:
+            raise ValueError(f"params do not match {cfg.name}'s table: "
+                             f"expected {want}, got {got}")
+        self.cfg = cfg
+        self.params = ParamTree(params)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.embedding.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.params.embedding.dtype
+
+    def _embed(self, p, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed_lookup(p["embedding"], tokens)
+        if self.cfg.emb_scale_by_sqrt_dim:  # the scale rounded to x's dtype
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        return x
+
+    def _unembed(self, p, x: torch.Tensor) -> torch.Tensor:
+        w = p["embedding"].T if self.cfg.tie_embeddings else p["lm_head"]
+        logits = (x @ w.to(x.dtype)).float()
+        cap = self.cfg.final_softcap
+        if cap is not None:  # in place: [B, S, V] float32 is large
+            logits.div_(cap).tanh_().mul_(cap)
+        return logits

@@ -3,7 +3,9 @@
 `params_from_reference` takes the JAX model's parameter tree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the port's tree of tensors, name for name: both packages keep the same
-layout (`transformer.defs`), so this is a copy, with no reshaping.
+layout (`transformer.defs`, `griffin.defs`: the stacked layers, the MoE
+expert stacks [L, E, d, f], deepseek's ``layer0``, Griffin's ``rec`` /
+``att`` / ``tail``), so this is a copy, with no reshaping.
 """
 
 from __future__ import annotations

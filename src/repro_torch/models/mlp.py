@@ -1,22 +1,33 @@
-"""Feed-forward blocks: the dense FFN (SwiGLU / GeGLU / squared-ReLU / GELU).
+"""Feed-forward blocks: dense (SwiGLU / GeGLU / squared-ReLU / GELU) and MoE.
 
-The JAX package's ``models/mlp.py`` dense half.  Its MoE blocks
-(``moe_defs``, ``moe_apply``) wait for their slice (ROADMAP Queue 1,
-item 10).  ``jax.nn.gelu`` is the tanh approximation by default, so the
-GELUs here pass ``approximate="tanh"`` (PyTorch's default is erf).
+The JAX package's ``models/mlp.py``.  ``jax.nn.gelu`` is the tanh
+approximation by default, so the GELUs here pass ``approximate="tanh"``
+(PyTorch's default is erf).
+
+MoE (qwen2-moe, deepseek-moe): shared experts (an always-on dense FFN of
+width ``shared_d_ff``, with no gate) + routed experts with top-k gating and
+a per-group capacity, dropped slots included, as the reference computes
+them.  qwen2-moe's 60 experts are padded to 64, the pad experts' router
+logits forced to ``NEG_INF``.  The port runs the reference's single-shard
+path (``mesh=None``); expert parallelism over a mesh waits for the
+sharding slice (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..obs.profiler import named_scope
 from .common import ParamDef
 from .config import ModelConfig
 
-__all__ = ["mlp_defs", "mlp_apply"]
+__all__ = ["mlp_defs", "mlp_apply", "moe_defs", "moe_route", "moe_dispatch",
+           "moe_apply", "MoeRoute", "NEG_INF"]
+
+NEG_INF = -1e30
 
 
 def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
@@ -42,3 +53,146 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         raise ValueError(cfg.mlp)
     return h @ p["wd"].to(dt)
+
+
+# ----------------------------------------------------------------------------
+# MoE FFN
+# ----------------------------------------------------------------------------
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.experts_padded
+    defs = {
+        "router": ParamDef((d, e), ("embed", None), scale=0.02, init="normal"),
+        "wg": ParamDef((e, d, f), ("experts", "embed", "ff"), fan_dims=(1,)),
+        "wu": ParamDef((e, d, f), ("experts", "embed", "ff"), fan_dims=(1,)),
+        "wd": ParamDef((e, f, d), ("experts", "ff", "embed"), fan_dims=(1,)),
+    }
+    if cfg.shared_d_ff:
+        defs["shared"] = mlp_defs(cfg, cfg.shared_d_ff)
+    return defs
+
+
+_MOE_GROUP = 2048  # tokens per dispatch group; bounds the capacity buffers
+
+
+def _group_size(t: int) -> int:
+    """The reference's dispatch group: the largest of 2048 .. 128 that
+    divides `t` (and is at most `t`), else all of `t`."""
+    for cand in (2048, 1024, 512, 256, 128):
+        if cand <= _MOE_GROUP and t % cand == 0 and t >= cand:
+            return cand
+    return t
+
+
+class MoeRoute(NamedTuple):
+    """Where each (token, k) slot goes: `idx`, `gate`, `pos`, `within` are
+    [G, g, K] (expert, renormalised gate, position in the expert's buffer,
+    kept); `g` tokens a group, `cap` slots an expert and group."""
+    g: int
+    cap: int
+    idx: torch.Tensor
+    gate: torch.Tensor
+    pos: torch.Tensor
+    within: torch.Tensor
+
+
+def moe_route(router: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig,
+              capacity: int) -> MoeRoute:
+    """The reference's router on x2d [T, d] (``_moe_local``'s first half):
+    float32 logits (pad experts at NEG_INF), softmax, top-k, the gates
+    renormalised, each slot's position = the number of earlier slots of its
+    group, in (token, k) order, that chose the same expert; slots at or past
+    the group's capacity `cap` are dropped (``within`` False)."""
+    t, _ = x2d.shape
+    k, e_total = cfg.top_k, cfg.experts_padded
+    g = _group_size(t)
+    ngroups = t // g
+    # Python integer arithmetic, as the reference's
+    cap = max(1, int(capacity * g / t)) if capacity < t * k else g * k
+    logits = (x2d.float() @ router.float()).view(ngroups, g, e_total)
+    if cfg.num_experts < e_total:  # mask padded experts
+        logits[..., cfg.num_experts:] = NEG_INF
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)  # [G, g, K], largest first
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    # exclusive running count of each expert over the group's slots, laid
+    # out [G, E, g*K] so that the scan runs along the innermost dim (along
+    # an outer dim PyTorch scans each column serially: 2.4 ms a
+    # deepseek-moe-16b layer at S = 4096 on an H100).  A comparison, not
+    # F.one_hot, which reads idx's range back to the host
+    flat = idx.view(ngroups, 1, g * k)
+    onehot = flat == torch.arange(e_total, device=idx.device).view(1, -1, 1)
+    earlier = torch.cumsum(onehot, dim=2) - onehot.long()
+    pos = earlier.gather(1, flat).view(ngroups, g, k)
+    return MoeRoute(g, cap, idx, gate, pos, pos < cap)
+
+
+def moe_dispatch(x2d: torch.Tensor, r: MoeRoute, cfg: ModelConfig):
+    """(xe, row): the kept slots' token rows of x2d [T, d] gathered into an
+    expert-major buffer xe [E, G * cap, d] (group-major within an expert,
+    then position; an empty slot is a zero row), and row [T * K], each
+    (token, k) slot's row in it (E * G * cap for a dropped slot).  The
+    reference's one-hot product with 0/1 entries is exact, so xe holds its
+    dispatched rows bit for bit."""
+    t, d = x2d.shape
+    e_total, k = cfg.experts_padded, cfg.top_k
+    ngroups = t // r.g
+    group = torch.arange(ngroups, device=x2d.device).view(ngroups, 1, 1)
+    row = (r.idx * ngroups + group) * r.cap + r.pos
+    rows = e_total * ngroups * r.cap
+    row = torch.where(r.within, row, rows).view(-1)
+    token = torch.arange(t, device=x2d.device).repeat_interleave(k)
+    src = torch.full((rows + 1,), t, dtype=torch.long, device=x2d.device)
+    src[row] = token  # kept rows are unique; only the dump row repeats
+    xpad = torch.cat([x2d, x2d.new_zeros(1, d)])  # row t: the empty slot
+    return xpad[src[:rows]].view(e_total, ngroups * r.cap, d), row
+
+
+def _moe_local(p, x2d: torch.Tensor, cfg: ModelConfig,
+               capacity: int) -> torch.Tensor:
+    """Routed-expert math on x2d [T, d], all experts local.
+
+    The reference builds one-hot dispatch and combine tensors [G, g, E, C]
+    and contracts them with einsums; at deepseek-moe-16b's S = 4096 prefill
+    those two contractions cost about as many FLOPs as the experts
+    themselves.  Here the same function goes through index tensors: the
+    kept slots' rows are gathered (`moe_dispatch`), the experts run as
+    batched matrix products, and each token gathers its K expert outputs
+    back, weighted by its gates rounded to the activation dtype (the
+    reference's ``comb.astype(dt)``; a dropped slot weighs 0).  The combine
+    sums the K terms in top-k order, the reference's einsum in expert
+    order.  The four steps are labelled for `torch.profiler` ("moe.route",
+    "moe.dispatch", "moe.experts", "moe.combine")."""
+    dt = x2d.dtype
+    t, d = x2d.shape
+    with named_scope("moe.route"):
+        r = moe_route(p["router"], x2d, cfg, capacity)
+    with named_scope("moe.dispatch"):
+        xe, row = moe_dispatch(x2d, r, cfg)
+    with named_scope("moe.experts"):
+        h = F.silu(torch.bmm(xe, p["wg"].to(dt))) \
+            * torch.bmm(xe, p["wu"].to(dt))
+        ye = torch.bmm(h, p["wd"].to(dt)).view(-1, d)
+    with named_scope("moe.combine"):
+        w = (r.gate.to(dt) * r.within).view(t, 1, cfg.top_k)
+        back = ye[torch.where(r.within.view(-1), row, 0)].view(
+            t, cfg.top_k, d)
+        return torch.bmm(w, back).view(t, d)
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              dropless: bool = False) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]: the reference's single-shard path.
+    ``dropless=True`` sizes the capacity at T * top_k (no drops; the
+    serving path), else ``int(moe_capacity_factor * T * top_k / E)``."""
+    b, s, d = x.shape
+    t = b * s
+    if dropless:
+        capacity = t * cfg.top_k
+    else:
+        capacity = max(1, int(cfg.moe_capacity_factor * t * cfg.top_k
+                              / cfg.experts_padded))
+    out = _moe_local(p, x.reshape(t, d), cfg, capacity).view(b, s, d)
+    if cfg.shared_d_ff:
+        out = out + mlp_apply(p["shared"], x, cfg)
+    return out

@@ -228,25 +228,29 @@ def certified_saturation_tests(mode, damaged):
 
 DENSE = ["gemma2-9b", "qwen2-0.5b", "qwen3-4b", "nemotron-4-340b",
          "qwen2-vl-72b"]
+MOE = ["deepseek-moe-16b", "qwen2-moe-a2.7b"]
+# scaled_down gives the hybrid 2 layers: no (rec, rec, attn) group, so no
+# attention.  5 layers are one group and 2 tail layers.
+GRIFFIN = {"num_layers": 5}
 
 
-def reference_pair(name):
+def reference_pair(name, **overrides):
     """(JAX model, its float32 params, the port's model on the CPU with the
-    same params) for `name` scaled down; the JAX forward runs its Pallas
-    kernel in interpret mode."""
+    same params) for `name` scaled down (then `overrides`); the JAX forward
+    runs its Pallas kernel in interpret mode."""
     import jax
 
     from repro.configs import get_config as r_get_config
     from repro.models import build_model as r_build_model
     from repro_torch.configs import get_config
+    from repro_torch.models.api import model_parts
     from repro_torch.models.convert import params_from_reference
-    from repro_torch.models.transformer import TransformerLM
 
-    rcfg = r_get_config(name).scaled_down(dtype="float32")
+    rcfg = r_get_config(name).scaled_down(dtype="float32", **overrides)
     rmodel = r_build_model(rcfg, use_pallas=True, remat="none")
     rparams = rmodel.init(jax.random.PRNGKey(0))
-    cfg = get_config(name).scaled_down(dtype="float32")
-    port = TransformerLM(cfg, params_from_reference(
+    cfg = get_config(name).scaled_down(dtype="float32", **overrides)
+    port = model_parts(cfg)[1](cfg, params_from_reference(
         jax.tree.map(np.asarray, rparams), device="cpu"))
     return rmodel, rparams, port
 

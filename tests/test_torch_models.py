@@ -12,8 +12,9 @@ most 4e-6 here.
 
 Also: the layer functions one by one (RMSNorm's rounding steps in
 bfloat16, the tanh-approximate GELU, RoPE and M-RoPE, the bfloat16-rounded
-embedding scale), the parameter tables of every dense full config against
-the JAX tables without allocating, and the init statistics.
+embedding scale), the parameter tables of every dense, MoE and hybrid
+full config against the JAX tables without allocating, and the init
+statistics.
 """
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from repro.models import mlp as r_mlp  # noqa: E402
 from repro.models import rope as r_rope  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.models import build_model, common, mlp, rope  # noqa: E402
+from repro_torch.models.api import model_parts  # noqa: E402
 from repro_torch.models.transformer import defs  # noqa: E402
 from _torch_port import DENSE, reference_pair, tokens_for  # noqa: E402
 
@@ -58,21 +60,36 @@ def test_forward_matches_reference(name):
 @pytest.mark.parametrize("name", list_archs())
 def test_parameter_tables_match_reference(name):
     """Shapes and counts of every full config's table, nothing allocated;
-    the families not ported yet refuse to build."""
+    the families not ported yet (ssm, encdec) refuse to build."""
     cfg, rcfg = get_config(name), r_get_config(name)
     rdefs = r_build_model(rcfg).defs()
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model_parts(cfg)
         return
     is_def = lambda x: isinstance(x, r_common.ParamDef)  # noqa: E731
     want = jax.tree.map(lambda d: (d.shape, d.logical, d.init, d.fan_dims,
                                    d.scale), rdefs, is_leaf=is_def)
+    table = model_parts(cfg)[0](cfg)
     got = common.tree_map(lambda d: (d.shape, d.logical, d.init, d.fan_dims,
-                                     d.scale), defs(cfg))
+                                     d.scale), table)
     assert got == want
-    assert common.count_params(defs(cfg)) == r_common.count_params(
+    assert common.count_params(table) == r_common.count_params(
         jax.tree.leaves(rdefs, is_leaf=is_def))
+
+
+@pytest.mark.parametrize("name,billions", [("deepseek-moe-16b", 16.4),
+                                            ("qwen2-moe-a2.7b", 15.2),
+                                            ("recurrentgemma-9b", 8.58)])
+def test_moe_and_hybrid_full_width_counts(name, billions):
+    """The two MoE configs and the hybrid at their published widths (the
+    MoE counts are tests/test_models.py's): 32.8, 30.4 and 17.2 GB in
+    bfloat16, the sizes the card holds in turn."""
+    cfg = get_config(name)
+    n = common.count_params(model_parts(cfg)[0](cfg))
+    assert n / 1e9 == pytest.approx(billions, rel=0.01)
 
 
 def test_gemma2_full_width_counts():

@@ -19,7 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.train import make_serve_step as r_make_serve_step  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from _torch_port import DENSE, reference_pair, tokens_for  # noqa: E402
+from _torch_port import (DENSE, GRIFFIN, reference_pair,  # noqa: E402
+                         tokens_for)
 
 B = 2
 
@@ -91,6 +92,29 @@ def test_generate_greedy_matches_reference_loop(name):
     got = serve.generate(port, cache, torch.from_numpy(prompt).long(), 10)
     assert got.dtype == torch.int64 and got.shape == (B, 10)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "recurrentgemma-9b"])
+def test_generate_greedy_matches_reference_loop_moe_and_hybrid(name):
+    """deepseek-moe (dense layer0, dropless MoE decode) and Griffin at 5
+    layers (one (rec, rec, attn) group and 2 tail layers; window 16, so the
+    26 steps wrap its rolling cache)."""
+    over = GRIFFIN if name == "recurrentgemma-9b" else {}
+    rmodel, rparams, port = reference_pair(name, **over)
+    prompt = tokens_for(port.cfg, B, 8, seed=5)
+    want = _reference_loop(rmodel, rparams, prompt, 18)
+    cache = port.init_cache(B, 26)
+    got = serve.generate(port, cache, torch.from_numpy(prompt).long(), 18)
+    assert got.dtype == torch.int64 and got.shape == (B, 18)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b"])
+def test_serve_cli_moe_and_hybrid_on_cpu(arch, capsys):
+    out = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "4",
+                      "--tokens", "3", "--device", "cpu"])
+    assert out.shape == (2, 3)
+    assert "tok/s" in capsys.readouterr().out
 
 
 def test_serve_cli_on_cpu(capsys):
