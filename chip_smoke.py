@@ -13,8 +13,9 @@ a link-failure transient) at PF(31), the structural-analysis path (the
 §IV-D routing table, the §IX diameters under link failure, the blocked
 routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
 (6321 routers), and the prefill and serve paths of the dense transformer
-(Gemma2-9B), the MoE family (deepseek-moe-16b, qwen2-moe-a2.7b) and the
-Griffin hybrid (recurrentgemma-9b), each at its full published width.
+(Gemma2-9B), the MoE family (deepseek-moe-16b, qwen2-moe-a2.7b), the
+Griffin hybrid (recurrentgemma-9b), the SSM (falcon-mamba-7b) and the
+encoder-decoder (whisper-base), each at its full published width.
 Each path's kernel counts are set to 0 just before it and read just
 after.  Phases, one JSON line each:
 
@@ -139,6 +140,20 @@ after.  Phases, one JSON line each:
              a prefill, the RG-LRU scan's device time in the breakdown;
              float32 at 5 layers (one group + 2 tail layers, 1 CUDA-core
              launch)
+  ssm        the same for falcon-mamba-7b (64 layers, d_model 4096, d_inner
+             8192, state 16, dt_rank 256, vocab 65024; 14.0 GB): the
+             S = 4096 prefill is 16 scan chunks of 256 and launches no flash
+             kernel; the selective scan's share of the prefill's device
+             time in the breakdown; float32 at 4 layers
+  encdec     the same for whisper-base (6 + 6 layers, d_model 512, 8 heads
+             of 64, 1500 frames; no depth cut anywhere): random bf16 frames
+             (the serve CLI's, in the model's dtype) with every forward and
+             every `init_cache`; the prefill on 1500 frames and 448 tokens
+             (the published text context) with 12 sm90 launches (6
+             non-causal at S = 1500, 6 causal at S = 448); the serve run
+             with 6 launches an `init_cache` (the encoder) and none a
+             decode step; float32 of the whole model (12 CUDA-core
+             launches) on 1500 frames
 
 The kernels phase also holds both flash-attention kernels against their
 plain version: the sm90 tensor-core kernel (csrc/flash_attention_sm90.cu,
@@ -152,7 +167,10 @@ causal, window 4096 and none), and the sm90 kernel at the MoE prefill's
 (B = 1, 16/16 heads, S = 4096, D = 128, causal, no softcap, no window:
 SDPA computes the same function there, and its time is the library time)
 and the hybrid prefill's (B = 1, 16/1 heads, S = 4096, D = 256, window
-2048).  fp32 is held at 2e-6, the JAX test's bar.
+2048), and both kernels (fp32, bf16) at whisper-base's encoder (B = 1
+and 4, 8/8 heads, S = 1500, D = 64, non-causal: 1500 is ragged against
+every tile) and decoder (B = 1, S = 448, causal), with SDPA's time beside
+them (the same function).  fp32 is held at 2e-6, the JAX test's bar.
 bf16 is held at the JAX test's 2e-2 and, element by element, within one
 bf16 rounding of the plain version (2^-7 |ref| + 1e-5): the kernels and
 the plain version compute in fp32 (the sm90 kernel with p split into two
@@ -162,9 +180,10 @@ kernels' times (bf16), the plain version's and the bound at the prefill's
 shapes and, at the same shape without softcap, the kernels' beside
 `scaled_dot_product_attention`'s (the library time; the port never calls
 it).  In the kernel table the sm90 kernel's launches are the Gemma2-9B
-bf16 prefill's (the MoE and hybrid prefills' in `launches_by_path`, its
-times at their shapes in `other_path_shapes`), the CUDA-core kernel's
-those of the Gemma2-9B float32 consistency run.
+bf16 prefill's (the MoE, hybrid, SSM and encoder-decoder prefills' in
+`launches_by_path`, its times at their shapes in `other_path_shapes`),
+the CUDA-core kernel's those of the Gemma2-9B float32 consistency run
+(whisper-base's in `launches_by_path`).
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -246,8 +265,14 @@ CONSISTENCY = {"layers": 4, "batch": 2, "seq": 48, "tol": 2e-3}
 MOE = ["deepseek-moe-16b", "qwen2-moe-a2.7b"]
 HYBRID = "recurrentgemma-9b"
 NEW_PREFILL_S = 4096
+# the SSM (falcon-mamba-7b: S = 4096 is 16 chunks of 256, float32
+# consistency at 4 layers) and the encoder-decoder (whisper-base: 1500
+# frames, its published 448-token text context, every layer at every step)
+SSM = "falcon-mamba-7b"
+ENCDEC = "whisper-base"
+WHISPER_TEXT_S = 448
 CONSISTENCY_LAYERS = {GEMMA: CONSISTENCY["layers"], "deepseek-moe-16b": 4,
-                      "qwen2-moe-a2.7b": 4, HYBRID: 5}
+                      "qwen2-moe-a2.7b": 4, HYBRID: 5, SSM: 4, ENCDEC: 6}
 
 
 def emit(obj):
@@ -775,14 +800,29 @@ def new_attention_shapes():
     return out
 
 
+def whisper_attention_shapes():
+    """[(label, (B, Hq, Hkv, S, D, causal))] of whisper-base's attention:
+    the encoder's (non-causal over the 1500 frames, at B = 1 and at the
+    serve run's 4) and the decoder's prefill (causal over 448 tokens)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    f = cfg.encoder_frames
+    return [("whisper_encoder_b1", (1, h, kv, f, d, False)),
+            ("whisper_encoder_b4", (SERVE["batch"], h, kv, f, d, False)),
+            ("whisper_decoder_b1", (1, h, kv, WHISPER_TEXT_S, d, True))]
+
+
 def kernel_flash_attention(torch, state):
     """Both flash-attention kernels against the plain version: the sm90
     tensor-core kernel (bf16 at D in {64, 128, 192, 256}, where
     `ops.attention` sends bf16) and the CUDA-core kernel in float32 (where
     `ops.attention` sends float32) and in bf16 (`ops._launch`, the route
-    bf16 takes at other head dims), at FLASH_CASES and at the Gemma2-9B
-    prefill shapes; then both kernels' times at those shapes beside the
-    plain version's, the bound and SDPA's."""
+    bf16 takes at other head dims), at FLASH_CASES, at the Gemma2-9B
+    prefill shapes and at whisper-base's (non-causal at the ragged
+    S = 1500, causal at S = 448); then both kernels' times at those shapes
+    beside the plain version's, the bound and SDPA's."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -835,6 +875,26 @@ def kernel_flash_attention(torch, state):
 
     def simt(x, causal=True, softcap=None, window=None):
         return ops._launch(*x, causal, softcap, window, None, "simt")
+
+    def timed(x, causal, softcap, window, plain):
+        """Both kernels' bf16 times on `x`, the plain version's and the
+        bound, as in the rows below."""
+        b_, hq_, hkv_, s_, d_ = (*x[0].shape[:2], x[1].shape[1],
+                                 *x[0].shape[2:])
+        kw = {"causal": causal, "softcap": softcap, "window": window}
+        bound, by_ops, by_bytes = flash_bound_ms(b_, hq_, hkv_, s_, d_,
+                                                 causal, window, 2)
+        sm90_ms = gpu_ms(torch, lambda: ops.attention(*x, **kw), samples=10)
+        simt_ms = gpu_ms(torch, lambda: simt(x, **kw), samples=10)
+        return {"shape": [b_, hq_, hkv_, s_, d_], "causal": causal,
+                "softcap": softcap, "window": window, "sm90_ms": sm90_ms,
+                "simt_bf16_ms": simt_ms,
+                "plain_ms": gpu_ms(torch, lambda: plain(*x, **kw), samples=3,
+                                   warmup=1),
+                "bound_ms": bound, "flops_ms": by_ops, "bytes_ms": by_bytes,
+                "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+                "sm90_bound_share": bound / sm90_ms,
+                "simt_bound_share": bound / simt_ms}
 
     for case in FLASH_CASES:
         b, hq, hkv, s, d, causal, cap, win = case
@@ -920,6 +980,31 @@ def kernel_flash_attention(torch, state):
                                     "no window"
         times[label] = row
         del x
+    # whisper-base's encoder (non-causal, S = 1500: ragged against the
+    # sm90 kernel's 128-row q tiles and 64-key tiles, so every q tile's
+    # last key tile is masked past S) and decoder (causal, S = 448); no
+    # softcap, no window: SDPA computes the same function
+    for label, (b2, hq2, hkv2, s2, d2, causal2) in whisper_attention_shapes():
+        x = inputs(b2, hq2, hkv2, s2, d2, torch.bfloat16, seed=3)
+        full = f"{label} {(b2, hq2, hkv2, s2, d2)} causal {causal2}"
+        want = attention_ref(*x, causal=causal2)
+        hold(full, *routed(x, causal=causal2), want)
+        hold(full, "simt", simt(x, causal=causal2), want)
+        x32 = [t.float() for t in x]
+        hold(full, *routed(x32, causal=causal2),
+             attention_ref(*x32, causal=causal2))
+        del x32, want
+        row = timed(x, causal2, None, None, attention_ref)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            *x, is_causal=causal2)
+        row["library_ms"] = gpu_ms(torch, lib, samples=10)
+        row["library_max_abs_err"] = float(
+            (lib().float() - ops.attention(*x, causal=causal2).float()
+             ).abs().max())
+        row["library_reason"] = "the same function: no softcap, no window, " \
+                                f"is_causal={causal2}"
+        times[label] = row
+        del x
     library_ms = times["causal_no_softcap"]["library_ms"]
     g = times["global"]
     common = {
@@ -942,13 +1027,18 @@ def kernel_flash_attention(torch, state):
         "other_path_shapes": {
             label: {key: times[label][key] for key in (
                 "shape", "window", "sm90_ms", "plain_ms", "bound_ms",
-                "library_ms")} for label, _ in new_attention_shapes()}}
+                "library_ms")} for label, _ in new_attention_shapes()
+            + whisper_attention_shapes()}}
     state["flash_attention"] = {
         "name": "flash_attention", **common,
         "source": src + "flash_attention.cu",
         "max_abs_err": max(worst["simt"].values()), "ms": g["simt_bf16_ms"],
         "timed_at": f"{GEMMA} global layer, bf16 (the prefill runs float32 "
-                    f"through it only in the consistency run)"}
+                    f"through it only in the consistency run)",
+        "other_path_shapes": {
+            label: {key: times[label][key] for key in (
+                "shape", "causal", "simt_bf16_ms", "plain_ms", "bound_ms",
+                "library_ms")} for label, _ in whisper_attention_shapes()}}
     return {"checks": rows, "max_abs_err": worst, "times": times,
             "timed_at": f"{GEMMA} prefill layer, S={s}, bf16",
             "smem_bytes_d256": {"sm90": ops.smem_bytes(d, "sm90"),
@@ -1593,13 +1683,42 @@ def phase_analysis(torch, state):
     return out
 
 
+def scope_device_ms(events, scopes):
+    """{name: device ms of the kernels and copies that ran inside the
+    device-side ranges of the `named_scope`s called `name`}, for the names
+    that start with one of `scopes`, read off the profiler's timeline
+    (`events`: `prof.events()`).  The profiler's own `device_time_total` of
+    a scope sums the kernels it links to the scope's CPU events; in a
+    falcon-mamba prefill (45k kernels) that sum exceeded the whole device
+    time, while at 2 layers it equals this one
+    (scripts/profiler_scopes.py)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    runs = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    starts = [r[0] for r in runs]
+    out = {}
+    for a in events:
+        if a.device_type == DeviceType.CUDA and a.is_user_annotation \
+                and a.name.startswith(scopes):
+            lo, hi = a.time_range.start, a.time_range.end
+            inside = runs[bisect.bisect_left(starts, lo):
+                          bisect.bisect_right(starts, hi)]
+            out[a.name] = out.get(a.name, 0.0) + sum(
+                end - start for start, end in inside if end <= hi) / 1e3
+    return out
+
+
 def device_time_by_kernel(torch, fn, scopes=()):
     """Run `fn` once under torch.profiler: {"wall_ms", "device_ms" (the sum
     of the device's kernel and copy times), "kernels" (their number),
     "flash_ms" (both flash-attention kernels), "top" (the largest by
-    device time), "scopes" (the device ms of the kernels launched inside
+    device time), "scopes" (the device ms of the kernels that ran inside
     each `named_scope` whose name starts with one of `scopes`, e.g.
-    "moe.experts")}.
+    "moe.experts": `scope_device_ms`)}.
     An error of `fn` (a kernel's launch or a CUDA fault) propagates; one of
     the profiler itself is reported in the result under "error", since the
     breakdown checks nothing."""
@@ -1620,6 +1739,7 @@ def device_time_by_kernel(torch, fn, scopes=()):
         try:
             prof.stop()
             events = prof.key_averages()
+            named = scope_device_ms(prof.events(), tuple(scopes))
         except Exception:  # noqa: BLE001 -- the profiler's own failure
             error = traceback.format_exc(limit=2)
     if error is not None:
@@ -1630,9 +1750,6 @@ def device_time_by_kernel(torch, fn, scopes=()):
             and not getattr(evt, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    named = {evt.key: evt.device_time_total / 1e3 for evt in events
-             if evt.device_type == DeviceType.CPU
-             and evt.key.startswith(tuple(scopes))} if scopes else {}
     return {"wall_ms": wall * 1e3, "device_ms": total, "scopes": named,
             "kernels": sum(r[2] for r in rows),
             "flash_ms": sum(r[1] for r in rows
@@ -1643,10 +1760,28 @@ def device_time_by_kernel(torch, fn, scopes=()):
 
 
 def attention_layers(cfg):
-    """Attention layers of `cfg`'s model: every layer of a transformer
-    (deepseek's layer0 included), one of each (rec, rec, attn) group of
-    the Griffin hybrid."""
-    return cfg.num_layers // 3 if cfg.family == "hybrid" else cfg.num_layers
+    """Self-attention layers of `cfg`'s model (one flash launch each in a
+    forward): every layer of a transformer (deepseek's layer0 included),
+    one of each (rec, rec, attn) group of the Griffin hybrid, none of the
+    SSM, the encoder's and the decoder's of the encoder-decoder."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // 3
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + cfg.num_layers
+    return cfg.num_layers
+
+
+def frames_kw(torch, cfg, batch, dtype, gen):
+    """{"frames": [batch, encoder_frames, d_model] * 0.1 in `dtype`} from
+    `gen` for the encoder-decoder (the serve CLI's frames), {} for every
+    other family."""
+    if cfg.family != "encdec":
+        return {}
+    return {"frames": torch.randn((batch, cfg.encoder_frames, cfg.d_model),
+                                  generator=gen, device="cuda",
+                                  dtype=dtype) * 0.1}
 
 
 def config_record(cfg):
@@ -1664,13 +1799,26 @@ def config_record(cfg):
                    capacity_factor=cfg.moe_capacity_factor)
     if cfg.family == "hybrid":
         rec["lru_width"] = cfg.lru_width
+    if cfg.family == "ssm":
+        rec.update(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+                   ssm_conv=cfg.ssm_conv, dt_rank=cfg.dt_rank,
+                   scan_chunk=256, tie_embeddings=cfg.tie_embeddings,
+                   unembed="embedding (the reference's, whatever the flag)")
+    if cfg.family == "encdec":
+        rec.update(encoder_layers=cfg.encoder_layers,
+                   encoder_frames=cfg.encoder_frames, mlp=cfg.mlp,
+                   text_context=WHISPER_TEXT_S,
+                   frames_dtype="bfloat16 (the model's)")
     return rec
 
 
 def breakdown(prof):
     """Prefill device ms by part from a `device_time_by_kernel` profile:
     attention (both flash kernels), the MoE router, dispatch + combine and
-    expert GEMMs, the RG-LRU scan, and the rest."""
+    expert GEMMs, the recurrence's scan (Griffin's RG-LRU or Mamba's
+    selective scan), Whisper's cross-attention, and the rest; the parts
+    add up to the device time.  Whisper's encoder ("whisper.encode", its
+    attention included) is reported beside them, not among them."""
     if not prof.get("device_ms"):
         return {"error": "the profiler traced no device time"}
     sc = prof["scopes"]
@@ -1679,10 +1827,12 @@ def breakdown(prof):
              "moe_dispatch_combine": sc.get("moe.dispatch", 0.0)
              + sc.get("moe.combine", 0.0),
              "moe_experts": sc.get("moe.experts", 0.0),
-             "scan": sc.get("griffin.scan", 0.0)}
+             "scan": sc.get("griffin.scan", 0.0) + sc.get("mamba.scan", 0.0),
+             "cross_attention": sc.get("whisper.cross", 0.0)}
     parts["other"] = prof["device_ms"] - sum(parts.values())
     return {**parts, "share": {k: v / prof["device_ms"]
-                               for k, v in parts.items()}}
+                               for k, v in parts.items()},
+            "encoder_incl_attention": sc.get("whisper.encode", 0.0)}
 
 
 def drive_lm(torch, arch, seq):
@@ -1690,7 +1840,10 @@ def drive_lm(torch, arch, seq):
     on the card: the prefill (`forward`, B = 1, S = `seq`, all layers, one
     sm90 flash-attention launch an attention layer and no CUDA-core one),
     then `launch.serve.generate` answering 4 requests, then float32
-    consistency at full width and CONSISTENCY_LAYERS[arch] layers.
+    consistency at full width and CONSISTENCY_LAYERS[arch] layers.  The
+    encoder-decoder gets random frames (`frames_kw`) with every forward
+    and every `init_cache`, which runs its encoder: `encoder_layers`
+    launches an `init_cache`, none a decode step.
     Returns (record, sm90 launches of the prefill, CUDA-core launches of
     the float32 forward); raises if a check failed."""
     from repro_torch.configs import get_config
@@ -1701,7 +1854,7 @@ def drive_lm(torch, arch, seq):
     from repro_torch.models.common import tree_map
 
     out, problems = {}, []
-    scopes = ("moe.", "griffin.")
+    scopes = ("moe.", "griffin.", "mamba.", "whisper.")
 
     def check(ok, what):
         if not ok:
@@ -1721,8 +1874,9 @@ def drive_lm(torch, arch, seq):
 
     # prefill: one warm-up forward (cuBLAS set-up) outside the count
     gen = torch.Generator(device="cuda").manual_seed(0)
+    fr1 = frames_kw(torch, cfg, 1, torch.bfloat16, gen)
     model.forward(torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
-                                device="cuda"))
+                                device="cuda"), **fr1)
     tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
                            device="cuda")
     torch.cuda.synchronize()
@@ -1730,7 +1884,7 @@ def drive_lm(torch, arch, seq):
     ops.LAUNCHES = 0  # the prefill path's counts start here
     ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0)
     t = time.perf_counter()
-    logits = model.forward(tokens)
+    logits = model.forward(tokens, **fr1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = ops.LAUNCHES
@@ -1738,7 +1892,8 @@ def drive_lm(torch, arch, seq):
     sm90_launches = by_kernel["sm90"]
     finite = bool(torch.isfinite(logits).all())
     out["prefill"] = {
-        "batch": 1, "seq": seq, "wall_s": wall,
+        "batch": 1, "seq": seq, "frames": cfg.encoder_frames if fr1 else 0,
+        "wall_s": wall,
         "tokens_per_s": seq / wall, "flash_launches": launches,
         "flash_launches_by_kernel": by_kernel,
         "attention_layers": n_attn,
@@ -1750,7 +1905,7 @@ def drive_lm(torch, arch, seq):
                              f"flash launches {by_kernel} for {n_attn} "
                              f"bf16 attention layers")}
     del logits
-    prof = device_time_by_kernel(torch, lambda: model.forward(tokens),
+    prof = device_time_by_kernel(torch, lambda: model.forward(tokens, **fr1),
                                  scopes)
     out["prefill"]["profile"] = prof
     out["prefill"]["breakdown_ms"] = breakdown(prof)
@@ -1762,17 +1917,20 @@ def drive_lm(torch, arch, seq):
     b, plen, ntok = SERVE["batch"], SERVE["prompt"], SERVE["tokens"]
     prompt = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
                            device="cuda")
-    generate(model, model.init_cache(b, plen + ntok), prompt, ntok)
-    walls, answers = [], []
-    before = ops.LAUNCHES
+    frs = frames_kw(torch, cfg, b, torch.bfloat16, gen)  # the 4 requests'
+    generate(model, model.init_cache(b, plen + ntok, **frs), prompt, ntok)
+    walls, answers, init_launches, serve_launches = [], [], [], 0
     for _ in range(SERVE["runs"]):
-        cache = model.init_cache(b, plen + ntok)
+        before = ops.LAUNCHES
+        cache = model.init_cache(b, plen + ntok, **frs)
+        init_launches.append(ops.LAUNCHES - before)  # the encoder's
         torch.cuda.synchronize()
+        before = ops.LAUNCHES
         t = time.perf_counter()
         answers.append(generate(model, cache, prompt, ntok))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
-    serve_launches = ops.LAUNCHES - before  # decode runs no kernel: 0
+        serve_launches += ops.LAUNCHES - before  # decode runs no kernel: 0
     answer, wall = answers[0], sorted(walls)[len(walls) // 2]
     # one more decode step, profiled (a breakdown only)
     step_profile = device_time_by_kernel(
@@ -1780,7 +1938,7 @@ def drive_lm(torch, arch, seq):
                                          plen + ntok - 1), scopes)
     # greedy tokens against the argmax of one forward over prompt + answer
     # (an MoE forward routes with drops, its decode dropless)
-    full = model.forward(torch.cat([prompt, answer], dim=1))
+    full = model.forward(torch.cat([prompt, answer], dim=1), **frs)
     agree = float((full[:, plen - 1:-1].argmax(-1) == answer).float().mean())
     out["serve"] = {
         "requests": b, "prompt": plen, "new_tokens": ntok,
@@ -1793,6 +1951,7 @@ def drive_lm(torch, arch, seq):
         "answers_equal_across_runs": all(bool((a == answer).all())
                                          for a in answers),
         "decode_steps": plen + ntok, "flash_launches": serve_launches,
+        "init_cache_flash_launches": init_launches,
         "greedy_agreement_with_forward_argmax": agree,
         "answer_ok": check(answer.shape == (b, ntok) and bool(
             ((answer >= 0) & (answer < cfg.vocab_size)).all()),
@@ -1801,7 +1960,10 @@ def drive_lm(torch, arch, seq):
         "card": torch.cuda.get_device_name(0)}
     check(serve_launches == 0, f"decode launched {serve_launches} flash "
                                f"kernels")
-    del model, cache, full
+    enc = cfg.encoder_layers if cfg.family == "encdec" else 0
+    check(init_launches == [enc] * SERVE["runs"],
+          f"init_cache launched {init_launches} flash kernels, not {enc} each")
+    del model, cache, full, frs
     torch.cuda.empty_cache()
 
     # float32 consistency at full width and reduced depth
@@ -1816,11 +1978,12 @@ def drive_lm(torch, arch, seq):
     model = build_model(cfg_c, device="cuda", seed=1)
     toks = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
                          generator=gen, device="cuda")
+    frc = frames_kw(torch, cfg, c["batch"], torch.float32, gen)
     ops.LAUNCHES = 0  # the float32 path's counts start here
     ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0)
-    full = model.forward(toks)
+    full = model.forward(toks, **frc)
     fwd_launches = dict(ops.LAUNCHES_BY_KERNEL)
-    cache = model.init_cache(c["batch"], c["seq"])
+    cache = model.init_cache(c["batch"], c["seq"], **frc)
     steps = []
     for pos in range(c["seq"]):
         lg, cache = model.decode_step(cache, toks[:, pos:pos + 1], pos)
@@ -1831,7 +1994,8 @@ def drive_lm(torch, arch, seq):
     t = time.perf_counter()
     cpu = model_parts(cfg_c)[1](cfg_c, tree_map(lambda a: a.detach().cpu(),
                                                 model.params.tree()))
-    cpu_full = cpu.forward(toks.cpu())
+    cpu_full = cpu.forward(toks.cpu(),
+                           **{k: v.cpu() for k, v in frc.items()})
     cpu_s = time.perf_counter() - t
     full_cpu = full.cpu()
     cpu_err = float((full_cpu - cpu_full).abs().max())
@@ -1839,6 +2003,8 @@ def drive_lm(torch, arch, seq):
                                  atol=c["tol"]))
     out["consistency_fp32"] = {
         "layers": cfg_c.num_layers, "batch": c["batch"], "seq": c["seq"],
+        "encoder_layers": cfg_c.encoder_layers,
+        "frames": cfg.encoder_frames if frc else 0,
         "tol": c["tol"], "tf32": torch.backends.cuda.matmul.allow_tf32,
         "capacity_factor": cfg_c.moe_capacity_factor
         if cfg.family == "moe" else None,
@@ -1851,7 +2017,7 @@ def drive_lm(torch, arch, seq):
         "card_vs_cpu_max_abs_err": cpu_err, "cpu_forward_s": cpu_s,
         "card_vs_cpu_ok": check(cpu_ok, "fp32 card forward vs CPU forward"),
         "logits_abs_max": float(full.abs().max())}
-    del model, cpu, cache, full
+    del model, cpu, cache, full, frc
     torch.cuda.empty_cache()
     out["model_seconds"] = time.perf_counter() - t0
     if problems:
@@ -1886,6 +2052,25 @@ def phase_hybrid(torch, state):
     return {HYBRID: out}
 
 
+def phase_ssm(torch, state):
+    """falcon-mamba-7b (`drive_lm`, S = 4096: 16 scan chunks of 256): no
+    attention, so no flash launch; the selective scan's share of the
+    prefill's device time in the breakdown."""
+    out, sm90, _ = drive_lm(torch, SSM, NEW_PREFILL_S)
+    state.setdefault("flash_sm90_launches_by_path", {})[SSM] = sm90
+    return {SSM: out}
+
+
+def phase_encdec(torch, state):
+    """whisper-base (`drive_lm`, 1500 frames and 448 tokens): 12 sm90
+    launches a prefill (6 non-causal at S = 1500, 6 causal at S = 448), 6
+    an `init_cache`, 12 CUDA-core launches in the float32 run."""
+    out, sm90, simt = drive_lm(torch, ENCDEC, WHISPER_TEXT_S)
+    state.setdefault("flash_sm90_launches_by_path", {})[ENCDEC] = sm90
+    state.setdefault("flash_simt_launches_by_path", {})[ENCDEC] = simt
+    return {ENCDEC: out}
+
+
 def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -1914,6 +2099,8 @@ def main():
         smoke.phase("model", phase_model, torch, state)
         smoke.phase("moe", phase_moe, torch, state)
         smoke.phase("hybrid", phase_hybrid, torch, state)
+        smoke.phase("ssm", phase_ssm, torch, state)
+        smoke.phase("encdec", phase_encdec, torch, state)
     launches = {"path_costs": state.get("launches", 0),
                 "minplus": state.get("minplus_launches", 0),
                 "minplus_hops": state.get("minplus_hops_launches", 0),
@@ -1924,11 +2111,17 @@ def main():
                for name in launches if name in state]
     for k in kernels:
         if k["name"] == "flash_attention_sm90":
-            # `launches` is the Gemma2-9B prefill's; the MoE and hybrid
-            # prefills' beside it
+            # `launches` is the Gemma2-9B prefill's; the MoE, hybrid, SSM
+            # and encoder-decoder prefills' beside it
             k["launches_by_path"] = {
                 GEMMA: k["launches"],
                 **state.get("flash_sm90_launches_by_path", {})}
+        if k["name"] == "flash_attention":
+            # `launches` is the Gemma2-9B float32 run's; whisper-base's
+            # (its whole model in float32) beside it
+            k["launches_by_path"] = {
+                GEMMA: k["launches"],
+                **state.get("flash_simt_launches_by_path", {})}
         if k["name"] == "path_costs":
             # the main path's count is `launches`; the certified path's
             # beside it

@@ -4,13 +4,19 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --preset full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --preset full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --preset full
 
 The JAX package's ``launch/serve.py`` on the port: random parameters from
 ``--seed``, a random prompt, the prompt fed token by token through the
 decode step (the fused prefill is ``model.forward``), then greedy
 (``--temperature 0``) or sampled decoding.  Runs on the card unless
-``--device cpu``.  The dense, MoE and hybrid (Griffin) families are
-ported; MoE decode routes dropless, as the reference's does.
+``--device cpu``.  Every family is ported; MoE decode routes dropless, as
+the reference's does.  For the encoder-decoder (Whisper) the random frames
+[B, encoder_frames, d_model] * 0.1 come from the same generator and are
+encoded by ``init_cache``; they are drawn in the model's dtype, where the
+reference draws float32 frames (which under bf16 parameters promote its
+whole encoder to float32).  In float32 the two are the same.
 """
 
 from __future__ import annotations
@@ -73,7 +79,14 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
-    cache = model.init_cache(args.batch, args.prompt_len + args.tokens)
+    max_seq = args.prompt_len + args.tokens
+    if cfg.family == "encdec":
+        frames = torch.randn((args.batch, cfg.encoder_frames, cfg.d_model),
+                             generator=gen, device=dev,
+                             dtype=model.dtype) * 0.1
+        cache = model.init_cache(args.batch, max_seq, frames=frames)
+    else:
+        cache = model.init_cache(args.batch, max_seq)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -1,4 +1,4 @@
-"""Model zoo: the assigned architectures the port runs (the dense, MoE and
-hybrid families; SSM and enc-dec wait for their slice)."""
+"""Model zoo: the assigned architectures, all five families of the JAX
+package (dense, MoE, SSM, hybrid, encoder-decoder)."""
 from .api import build_model  # noqa: F401
 from .config import ModelConfig  # noqa: F401

@@ -1,8 +1,8 @@
 """Uniform model facade: build an assigned architecture by config.
 
-The JAX package's ``models/api.py`` for the families the port runs:
-``dense`` and ``moe`` (`TransformerLM`) and ``hybrid`` (`GriffinLM`).  The
-other families raise NotImplementedError naming their ROADMAP item.
+The JAX package's ``models/api.py``: ``dense`` and ``moe``
+(`TransformerLM`), ``ssm`` (`MambaLM`), ``hybrid`` (`GriffinLM`) and
+``encdec`` (`WhisperModel`).  An unknown family raises ValueError.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Optional, Union
 import torch
 
 from ..device import resolve_device
-from . import griffin, transformer
+from . import griffin, mamba, transformer, whisper
 from .common import LanguageModel, dtype_of, init_params
 from .config import ModelConfig
 
@@ -22,22 +22,17 @@ __all__ = ["build_model", "model_parts"]
 _FAMILIES = {
     "dense": (transformer.defs, transformer.TransformerLM),
     "moe": (transformer.defs, transformer.TransformerLM),
+    "ssm": (mamba.defs, mamba.MambaLM),
     "hybrid": (griffin.defs, griffin.GriffinLM),
-}
-
-_WAITING = {
-    "ssm": "models/mamba (ROADMAP Queue 1, item 10)",
-    "encdec": "models/whisper (ROADMAP Queue 1, item 10)",
+    "encdec": (whisper.defs, whisper.WhisperModel),
 }
 
 
 def model_parts(cfg: ModelConfig):
-    """(defs, model class) of `cfg`'s family; NotImplementedError for a
-    family not ported yet."""
+    """(defs, model class) of `cfg`'s family; ValueError for an unknown
+    family."""
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_WAITING.get(cfg.family, 'unknown family')}")
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name})")
     return _FAMILIES[cfg.family]
 
 

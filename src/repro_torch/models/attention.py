@@ -33,7 +33,9 @@ __all__ = ["attn_defs", "attn_apply", "init_cache", "attn_decode", "NEG_INF"]
 NEG_INF = -1e30
 
 
-def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def attn_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamDef]:
+    """The attention block's parameter table.  ``cross`` is the
+    reference's parameter, accepted and unused there too."""
     d = cfg.d_model
     defs = {
         "wq": ParamDef((d, cfg.num_heads, cfg.head_dim), ("embed", "qheads", "head_dim")),

@@ -181,8 +181,14 @@ class LanguageModel(nn.Module):
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
-    def _unembed(self, p, x: torch.Tensor) -> torch.Tensor:
-        w = p["embedding"].T if self.cfg.tie_embeddings else p["lm_head"]
+    def _unembed(self, p, x: torch.Tensor,
+                 tied: Optional[bool] = None) -> torch.Tensor:
+        """float32 logits of x.  The embedding's transpose is the output
+        table where `tied` (default: ``cfg.tie_embeddings``), else
+        ``lm_head``: the Mamba reference unembeds with the embedding
+        whatever its config says and has no ``lm_head``."""
+        tied = self.cfg.tie_embeddings if tied is None else tied
+        w = p["embedding"].T if tied else p["lm_head"]
         logits = (x @ w.to(x.dtype)).float()
         cap = self.cfg.final_softcap
         if cap is not None:  # in place: [B, S, V] float32 is large

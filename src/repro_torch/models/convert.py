@@ -3,9 +3,11 @@
 `params_from_reference` takes the JAX model's parameter tree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the port's tree of tensors, name for name: both packages keep the same
-layout (`transformer.defs`, `griffin.defs`: the stacked layers, the MoE
-expert stacks [L, E, d, f], deepseek's ``layer0``, Griffin's ``rec`` /
-``att`` / ``tail``), so this is a copy, with no reshaping.
+layout (`transformer.defs`, `mamba.defs`, `griffin.defs`, `whisper.defs`:
+the stacked layers, the MoE expert stacks [L, E, d, f], deepseek's
+``layer0``, Mamba's ``in_proj`` [L, d, 2, E], Griffin's ``rec`` / ``att``
+/ ``tail``, Whisper's ``encoder`` / ``decoder``), so this is a copy, with
+no reshaping.
 """
 
 from __future__ import annotations

@@ -1,0 +1,201 @@
+"""Mamba-1 (falcon-mamba-7b): depthwise conv + selective SSM scan.
+
+The JAX package's ``models/mamba.py`` as an ``nn.Module``.  The parameters
+keep the reference's tree -- ``embedding``, ``final_norm`` and ``layers``
+with ``ln``, ``in_proj`` [d, 2, E], ``conv_w``, ``conv_b``, ``x_proj``,
+``dt_proj``, ``dt_bias``, ``a_log``, ``d``, ``out_proj`` stacked over the
+layers -- so `convert.params_from_reference` is a name-for-name copy.
+
+Prefill runs the selective scan chunk by chunk, as the reference does:
+the discretized [B, chunk, E, N] tensors exist one chunk at a time, in
+float32, and the state is carried from chunk to chunk.  Inside a chunk
+the recurrence is `griffin.lru_scan` (a log-depth Hillis-Steele scan) in
+place of the reference's ``lax.associative_scan``.  Decode is the O(1)
+recurrent step on the reference's cache (``conv`` [L, B, k-1, E] in the
+model dtype, ``ssm`` [L, B, E, N] float32), updated in place.  The
+reference unembeds with the embedding's transpose whatever
+``tie_embeddings`` says, and so does this model.  ``remat``, ``mesh``,
+``sp``, ``rules`` and the sharding specs are not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..obs.profiler import named_scope
+from .common import LanguageModel, ParamDef, embed_lookup, rms_norm, stack_defs
+from .config import ModelConfig
+from .griffin import lru_scan
+
+__all__ = ["MambaLM", "defs", "selective_scan"]
+
+_CHUNK = 256
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, chunk: int = _CHUNK):
+    """x [B,S,E], dt [B,S,E], a [E,N], b/c [B,S,N], d [E] -> (y [B,S,E] in
+    x's dtype, h [B,E,N] float32).
+
+    h_t = exp(dt A) h_{t-1} + dt * B_t x_t ;  y_t = C_t . h_t + D x_t
+
+    The reference's chunking: ``max(1, S // chunk)`` chunks of equal
+    length, and a ValueError where they do not divide S (the reference
+    asserts).  The state entering a chunk is folded into the chunk's first
+    element (b_0 <- a_0 h + b_0), so the scan starts from 0; the reference
+    scans the chunk and adds (prod a) h afterwards, so the two agree to
+    float32 rounding, not bit for bit."""
+    bsz, s, e = x.shape
+    n = a.shape[1]
+    nchunks = max(1, s // chunk)
+    if s % nchunks != 0:
+        raise ValueError(f"selective_scan: S = {s} does not split into "
+                         f"{nchunks} equal chunks (chunk {chunk})")
+    cs = s // nchunks
+    h = torch.zeros((bsz, e, n), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0
+    af = a.float()
+    ys = []
+    for i in range(nchunks):
+        part = slice(i * cs, (i + 1) * cs)
+        dtf = dt[:, part].float()
+        da = torch.exp(dtf[..., None] * af)  # [B, cs, E, N]
+        dbx = (dtf * x[:, part].float())[..., None] \
+            * b[:, part, None, :].float()
+        dbx[:, 0].addcmul_(da[:, 0], h)
+        hs = lru_scan(da, dbx)
+        del da, dbx
+        ys.append(torch.einsum("bsen,bsn->bse", hs, c[:, part].float()))
+        h = hs[:, -1].clone()
+        del hs
+    y = torch.cat(ys, dim=1) + x.float() * d.float()
+    return y.to(x.dtype), h
+
+
+def _block_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, e, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    return {
+        "ln": ParamDef((d,), ("embed",), "zeros"),
+        "in_proj": ParamDef((d, 2, e), ("embed", None, "inner")),
+        "conv_w": ParamDef((cfg.ssm_conv, e), (None, "inner"), scale=0.5),
+        "conv_b": ParamDef((e,), ("inner",), "zeros"),
+        "x_proj": ParamDef((e, r + 2 * n), ("inner", None)),
+        "dt_proj": ParamDef((r, e), (None, "inner")),
+        "dt_bias": ParamDef((e,), ("inner",), "normal", scale=0.1),
+        "a_log": ParamDef((e, n), ("inner", "state"), "normal", scale=0.1),
+        "d": ParamDef((e,), ("inner",), "ones"),
+        "out_proj": ParamDef((e, d), ("inner", "embed")),
+    }
+
+
+def defs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter table of `cfg` (the reference's ``MambaLM.defs``),
+    allocating nothing."""
+    return {
+        "embedding": ParamDef((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed_table"), "fan_in", fan_dims=(1,)),
+        "final_norm": ParamDef((cfg.d_model,), ("embed",), "zeros"),
+        "layers": stack_defs(_block_defs(cfg), cfg.num_layers),
+    }
+
+
+class MambaLM(LanguageModel):
+    """The SSM LM with `params`, a tree of `defs(cfg)`'s shapes (from
+    `common.init_params` or `convert.params_from_reference`)."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
+        super().__init__(cfg, params, defs(cfg))
+
+    # -- mixer -----------------------------------------------------------
+    def _mixer(self, p, h: torch.Tensor, cache=None) -> torch.Tensor:
+        """The reference's ``_mixer``: h [B, S, d] -> [B, S, d].  With
+        `cache` (S == 1) the layer's conv and ssm state are read and the
+        new ones written into it."""
+        cfg = self.cfg
+        e, n, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+        dt_ = h.dtype
+        bsz, s, dm = h.shape
+        xz = (h @ p["in_proj"].to(dt_).reshape(dm, 2 * e)).view(bsz, s, 2, e)
+        x, z = xz[:, :, 0], xz[:, :, 1]  # [B, S, E]
+        if cache is None:
+            xp = F.pad(x, (0, 0, k - 1, 0))
+        else:
+            xp = torch.cat([cache["conv"].to(dt_), x], dim=1)
+        # depthwise causal conv1d, the reference's sum of k shifted products
+        xc = sum(xp[:, i:i + s] * p["conv_w"][i].to(dt_) for i in range(k))
+        xc = F.silu(xc + p["conv_b"].to(dt_))
+        proj = xc @ p["x_proj"].to(dt_)  # [B, S, r + 2n]
+        dt_raw, bmat, cmat = torch.split(proj, [r, n, n], dim=-1)
+        dt = F.softplus(dt_raw @ p["dt_proj"].to(dt_) + p["dt_bias"].to(dt_))
+        a = -torch.exp(p["a_log"].float())
+        if cache is None:
+            with named_scope("mamba.scan"):
+                y, _ = selective_scan(xc, dt, a, bmat, cmat, p["d"].float())
+        else:  # one step; the new state written into the cache
+            dtf = dt[:, 0].float()  # [B, E]
+            da = torch.exp(dtf[..., None] * a)
+            dbx = (dtf * xc[:, 0].float())[..., None] \
+                * bmat[:, 0, None, :].float()
+            h1 = da * cache["ssm"] + dbx
+            y = torch.einsum("ben,bn->be", h1, cmat[:, 0].float())
+            y = (y + xc[:, 0].float() * p["d"].float())[:, None].to(dt_)
+            cache["conv"].copy_(xp[:, -(k - 1):])
+            cache["ssm"].copy_(h1)
+        return (y.to(dt_) * F.silu(z)) @ p["out_proj"].to(dt_)
+
+    def _layers(self, p, cache=None):
+        """(parameters, cache) of every layer, as views."""
+        for i in range(self.cfg.num_layers):
+            yield (
+                {key: t[i] for key, t in p["layers"].items()},
+                None if cache is None else {key: t[i]
+                                            for key, t in cache.items()})
+
+    def _logits(self, p, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)
+        return self._unembed(p, x, tied=True)
+
+    # -- forward ---------------------------------------------------------
+    @torch.inference_mode()
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill;
+        `positions` is accepted and unused, as in the reference)."""
+        p = self.params.tree()
+        x = embed_lookup(p["embedding"], tokens)
+        for lp, _ in self._layers(p):
+            x = x + self._mixer(lp, rms_norm(x, lp["ln"], self.cfg.norm_eps))
+        return self._logits(p, x)
+
+    # -- decode ----------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """The reference's cache: ``conv`` [L, B, k-1, E] in `dtype` and
+        ``ssm`` [L, B, E, N] float32, both zero; `max_seq` is unused (the
+        state is O(1))."""
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+        L = cfg.num_layers
+        return {
+            "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                dtype=dtype, device=self.device),
+            "ssm": torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state),
+                               dtype=torch.float32, device=self.device),
+        }
+
+    @torch.inference_mode()
+    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor,
+                    pos: int):
+        """tokens [B, 1] -> (float32 logits [B, 1, V], cache); the cache
+        is updated in place and returned (`pos` is unused: the state
+        carries the position)."""
+        p = self.params.tree()
+        x = embed_lookup(p["embedding"], tokens)
+        for lp, lc in self._layers(p, cache):
+            x = x + self._mixer(lp, rms_norm(x, lp["ln"], self.cfg.norm_eps),
+                                lc)
+        return self._logits(p, x), cache

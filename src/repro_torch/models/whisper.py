@@ -1,0 +1,223 @@
+"""Whisper-style encoder-decoder backbone (audio frontend stubbed).
+
+The JAX package's ``models/whisper.py`` as an ``nn.Module``.  The encoder
+consumes precomputed frame embeddings [B, F, d] (the conv frontend is a
+stub, as in the reference) and runs bidirectional self-attention; the
+decoder runs causal self-attention and cross-attention over the encoder's
+memory.  Both add the float32 sinusoid table cast to their input's dtype,
+and their self-attention applies RoPE too, as the reference's
+``attn_apply`` / ``attn_decode`` do.  Self-attention goes through the
+flash-attention kernel (``causal=False`` in the encoder); cross-attention
+is the reference's float32 einsum softmax, and decode re-projects the
+memory's keys and values at every step, as the reference does.
+
+The parameters keep the reference's tree (``embedding``, ``enc_norm``,
+``dec_norm``, ``encoder`` and ``decoder`` stacked over their layers), so
+`convert.params_from_reference` is a name-for-name copy.  The model
+computes in the dtype of what it is given, as JAX's promotion does: the
+encoder in the frames' dtype, the decoder in the embedding's, and the
+cross keys and values in the wider of the memory's and the decoder's.
+``remat``, ``mesh``, ``sp``, ``rules`` and the sharding specs are not
+carried over.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..obs.profiler import named_scope
+from . import attention as attn
+from . import mlp as ffn
+from .common import (LanguageModel, ParamDef, embed_lookup, rms_norm,
+                     stack_defs, tree_map)
+from .config import ModelConfig
+from .rope import default_positions
+
+__all__ = ["WhisperModel", "defs"]
+
+
+def _sinusoid(seq: int, dim: int, dtype: torch.dtype, device,
+              start: int = 0) -> torch.Tensor:
+    """Rows start .. start + seq - 1 of the reference's sinusoid table:
+    sin at the even columns, cos at the odd ones, in float32, cast to
+    `dtype`."""
+    pos = torch.arange(start, start + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    div = torch.exp(-math.log(10000.0)
+                    * torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=device) / dim)
+    ang = pos * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        seq, dim).to(dtype)
+
+
+def _cross_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    return {
+        "wq": ParamDef((d, cfg.num_heads, cfg.head_dim), ("embed", "qheads", "head_dim")),
+        "wk": ParamDef((d, cfg.num_kv_heads, cfg.head_dim), ("embed", "kvheads", "head_dim")),
+        "wv": ParamDef((d, cfg.num_kv_heads, cfg.head_dim), ("embed", "kvheads", "head_dim")),
+        "wo": ParamDef((cfg.num_heads, cfg.head_dim, d), ("qheads", "head_dim", "embed"),
+                       fan_dims=(0, 1)),
+    }
+
+
+def _enc_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {"ln1": ParamDef((d,), ("embed",), "zeros"),
+            "attn": attn.attn_defs(cfg),
+            "ln2": ParamDef((d,), ("embed",), "zeros"),
+            "mlp": ffn.mlp_defs(cfg)}
+
+
+def _dec_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {"ln1": ParamDef((d,), ("embed",), "zeros"),
+            "attn": attn.attn_defs(cfg),
+            "lnx": ParamDef((d,), ("embed",), "zeros"),
+            "cross": _cross_defs(cfg),
+            "ln2": ParamDef((d,), ("embed",), "zeros"),
+            "mlp": ffn.mlp_defs(cfg)}
+
+
+def defs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter table of `cfg` (the reference's
+    ``WhisperModel.defs``), allocating nothing."""
+    return {
+        "embedding": ParamDef((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed_table"), "fan_in", fan_dims=(1,)),
+        "enc_norm": ParamDef((cfg.d_model,), ("embed",), "zeros"),
+        "dec_norm": ParamDef((cfg.d_model,), ("embed",), "zeros"),
+        "encoder": stack_defs(_enc_block_defs(cfg), cfg.encoder_layers),
+        "decoder": stack_defs(_dec_block_defs(cfg), cfg.num_layers),
+    }
+
+
+def _layer(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+class WhisperModel(LanguageModel):
+    """The encoder-decoder with `params`, a tree of `defs(cfg)`'s shapes
+    (from `common.init_params` or `convert.params_from_reference`)."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
+        super().__init__(cfg, params, defs(cfg))
+
+    # -- encoder ---------------------------------------------------------
+    def _encode(self, p, frames: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, f, _ = frames.shape
+        with named_scope("whisper.encode"):
+            x = frames + _sinusoid(f, cfg.d_model, frames.dtype,
+                                   frames.device)[None]
+            positions = default_positions(b, f, device=frames.device)
+            for i in range(cfg.encoder_layers):
+                lp = _layer(p["encoder"], i)
+                h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+                x = x + attn.attn_apply(lp["attn"], h, cfg, positions,
+                                        causal=False)
+                h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+                x = x + ffn.mlp_apply(lp["mlp"], h, cfg)
+            return rms_norm(x, p["enc_norm"], cfg.norm_eps)
+
+    @torch.inference_mode()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, F, d] (precomputed conv-frontend embeddings) ->
+        memory [B, F, d] in the frames' dtype."""
+        return self._encode(self.params.tree(), frames)
+
+    # -- cross attention -------------------------------------------------
+    def _cross_apply(self, p, x: torch.Tensor,
+                     memory: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dt = x.dtype
+        mt = torch.promote_types(memory.dtype, dt)
+        with named_scope("whisper.cross"):
+            q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
+            k = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
+                             p["wk"].to(dt).to(mt))
+            v = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
+                             p["wv"].to(dt).to(mt))
+            logits = torch.einsum("bhsk,bhfk->bhsf",
+                                  q.float() * cfg.head_dim ** -0.5, k.float())
+            w = torch.softmax(logits, dim=-1)
+            o = torch.einsum("bhsf,bhfk->bhsk", w, v.float()).to(dt)
+            return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(dt))
+
+    def _dec_block(self, p, x: torch.Tensor, memory: torch.Tensor, positions,
+                   cache=None, pos: Optional[int] = None) -> torch.Tensor:
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if cache is None:
+            a = attn.attn_apply(p["attn"], h, cfg, positions)
+        else:
+            a, _ = attn.attn_decode(p["attn"], h, cfg, cache, pos)
+        x = x + a
+        x = x + self._cross_apply(p["cross"], rms_norm(x, p["lnx"],
+                                                       cfg.norm_eps), memory)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + ffn.mlp_apply(p["mlp"], h, cfg)
+
+    def _logits(self, p, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, p["dec_norm"], self.cfg.norm_eps)
+        return self._unembed(p, x, tied=True)
+
+    # -- decoder forward (teacher forcing) -------------------------------
+    @torch.inference_mode()
+    def forward(self, tokens: torch.Tensor,
+                frames: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S], frames [B, F, d] -> float32 logits [B, S, V]: the
+        encoder over `frames`, then the decoder over `tokens`."""
+        if frames is None:
+            raise ValueError("whisper needs encoder frames")
+        p = self.params.tree()
+        memory = self._encode(p, frames)
+        b, s = tokens.shape
+        if positions is None:
+            positions = default_positions(b, s, device=tokens.device)
+        x = embed_lookup(p["embedding"], tokens)
+        x = x + _sinusoid(s, self.cfg.d_model, x.dtype, x.device)[None]
+        for i in range(self.cfg.num_layers):
+            x = self._dec_block(_layer(p["decoder"], i), x, memory,
+                                positions)
+        return self._logits(p, x)
+
+    # -- decode ----------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None,
+                   frames: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """The reference's cache: ``self`` (k/v [L, B, Hkv, max_seq, D] in
+        `dtype`, ``slot_pos`` [L, max_seq]) and ``memory`` [B, F, d], the
+        encoder run over `frames` when they are given, else zeros in
+        `dtype`."""
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+        L = cfg.num_layers
+        one = attn.init_cache(cfg, batch, max_seq, False, dtype, self.device)
+        self_c = tree_map(lambda a: a.expand((L,) + a.shape).clone(), one)
+        if frames is not None:
+            memory = self.encode(frames)
+        else:
+            memory = torch.zeros((batch, cfg.encoder_frames, cfg.d_model),
+                                 dtype=dtype, device=self.device)
+        return {"self": self_c, "memory": memory}
+
+    @torch.inference_mode()
+    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor,
+                    pos: int):
+        """tokens [B, 1], pos an int -> (float32 logits [B, 1, V], cache);
+        the self-attention cache is updated in place and returned."""
+        p = self.params.tree()
+        x = embed_lookup(p["embedding"], tokens)
+        x = x + _sinusoid(1, self.cfg.d_model, x.dtype, x.device,
+                          start=pos)[None]
+        memory = cache["memory"]
+        for i in range(self.cfg.num_layers):
+            x = self._dec_block(_layer(p["decoder"], i), x, memory, None,
+                                cache=_layer(cache["self"], i), pos=pos)
+        return self._logits(p, x), cache

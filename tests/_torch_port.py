@@ -234,10 +234,11 @@ MOE = ["deepseek-moe-16b", "qwen2-moe-a2.7b"]
 GRIFFIN = {"num_layers": 5}
 
 
-def reference_pair(name, **overrides):
+def reference_pair(name, use_pallas=True, **overrides):
     """(JAX model, its float32 params, the port's model on the CPU with the
     same params) for `name` scaled down (then `overrides`); the JAX forward
-    runs its Pallas kernel in interpret mode."""
+    runs its Pallas kernel in interpret mode (`use_pallas`), else its plain
+    attention."""
     import jax
 
     from repro.configs import get_config as r_get_config
@@ -247,12 +248,20 @@ def reference_pair(name, **overrides):
     from repro_torch.models.convert import params_from_reference
 
     rcfg = r_get_config(name).scaled_down(dtype="float32", **overrides)
-    rmodel = r_build_model(rcfg, use_pallas=True, remat="none")
+    rmodel = r_build_model(rcfg, use_pallas=use_pallas, remat="none")
     rparams = rmodel.init(jax.random.PRNGKey(0))
     cfg = get_config(name).scaled_down(dtype="float32", **overrides)
     port = model_parts(cfg)[1](cfg, params_from_reference(
         jax.tree.map(np.asarray, rparams), device="cpu"))
     return rmodel, rparams, port
+
+
+def frames_for(cfg, b, seed=0):
+    """[b, encoder_frames, d_model] float32 encoder frames (an enc-dec
+    model's input) from numpy, seeded, at the serve CLI's scale 0.1."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, cfg.encoder_frames, cfg.d_model))
+            * 0.1).astype(np.float32)
 
 
 def tokens_for(cfg, b, s, seed=0):

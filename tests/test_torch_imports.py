@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 60 else 0)
+sys.exit(1 if bad or missing or len(names) < 62 else 0)
 """ % (sorted([
     # the analysis slice: the §IX APSP and §IV-D routing-table entry
     # points, their kernels' wrappers, the structural metrics and the
@@ -66,6 +66,9 @@ sys.exit(1 if bad or missing or len(names) < 60 else 0)
     "repro_torch.fabric",
     "repro_torch.fabric.placement",
     "repro_torch.fabric.collectives",
+    # the SSM / encoder-decoder slice
+    "repro_torch.models.mamba",
+    "repro_torch.models.whisper",
 ]),)
 
 

@@ -12,9 +12,9 @@ most 4e-6 here.
 
 Also: the layer functions one by one (RMSNorm's rounding steps in
 bfloat16, the tanh-approximate GELU, RoPE and M-RoPE, the bfloat16-rounded
-embedding scale), the parameter tables of every dense, MoE and hybrid
-full config against the JAX tables without allocating, and the init
-statistics.
+embedding scale), the parameter tables of every full config (dense, MoE,
+SSM, hybrid, encoder-decoder) against the JAX tables without allocating,
+and the init statistics.
 """
 import numpy as np
 import pytest
@@ -59,16 +59,10 @@ def test_forward_matches_reference(name):
 
 @pytest.mark.parametrize("name", list_archs())
 def test_parameter_tables_match_reference(name):
-    """Shapes and counts of every full config's table, nothing allocated;
-    the families not ported yet (ssm, encdec) refuse to build."""
+    """Shapes and counts of every full config's table, all five families,
+    nothing allocated."""
     cfg, rcfg = get_config(name), r_get_config(name)
     rdefs = r_build_model(rcfg).defs()
-    if cfg.family in ("ssm", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model_parts(cfg)
-        return
     is_def = lambda x: isinstance(x, r_common.ParamDef)  # noqa: E731
     want = jax.tree.map(lambda d: (d.shape, d.logical, d.init, d.fan_dims,
                                    d.scale), rdefs, is_leaf=is_def)
@@ -78,6 +72,14 @@ def test_parameter_tables_match_reference(name):
     assert got == want
     assert common.count_params(table) == r_common.count_params(
         jax.tree.leaves(rdefs, is_leaf=is_def))
+
+
+def test_unknown_family_raises():
+    cfg = get_config("qwen3-4b").with_(family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        model_parts(cfg)
+    with pytest.raises(ValueError, match="rnn"):
+        build_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name,billions", [("deepseek-moe-16b", 16.4),

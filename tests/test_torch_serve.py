@@ -19,8 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.train import make_serve_step as r_make_serve_step  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from _torch_port import (DENSE, GRIFFIN, reference_pair,  # noqa: E402
-                         tokens_for)
+from _torch_port import (DENSE, GRIFFIN, frames_for,  # noqa: E402
+                         reference_pair, tokens_for)
 
 B = 2
 
@@ -66,10 +66,17 @@ def test_rolling_window_cache_matches_full():
     np.testing.assert_allclose(got, full, rtol=2e-3, atol=2e-3)
 
 
-def _reference_loop(rmodel, rparams, prompt, tokens):
-    """The JAX package's serving loop (repro/launch/serve.py), greedy."""
+def _reference_loop(rmodel, rparams, prompt, tokens, frames=None):
+    """The JAX package's serving loop (repro/launch/serve.py), greedy; an
+    enc-dec model's cache encodes `frames`, as its ``encdec`` branch
+    does."""
     step = jax.jit(r_make_serve_step(rmodel))
-    cache = rmodel.init_cache(prompt.shape[0], prompt.shape[1] + tokens)
+    max_seq = prompt.shape[1] + tokens
+    if frames is None:
+        cache = rmodel.init_cache(prompt.shape[0], max_seq)
+    else:
+        cache = rmodel.init_cache(prompt.shape[0], max_seq,
+                                  frames=jnp.asarray(frames), params=rparams)
     logits = None
     for pos in range(prompt.shape[1]):
         logits, cache = step(rparams, cache, jnp.asarray(prompt[:, pos:pos + 1]),
@@ -109,7 +116,27 @@ def test_generate_greedy_matches_reference_loop_moe_and_hybrid(name):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "whisper-base"])
+def test_generate_greedy_matches_reference_loop_ssm_and_encdec(name):
+    """falcon-mamba (the O(1) conv + ssm state) and whisper-base (its
+    memory encoded from numpy frames in init_cache, cross-attention at
+    every step), scaled down."""
+    rmodel, rparams, port = reference_pair(name)
+    cfg = port.cfg
+    prompt = tokens_for(cfg, B, 8, seed=5)
+    frames = frames_for(cfg, B, seed=5) if cfg.family == "encdec" else None
+    want = _reference_loop(rmodel, rparams, prompt, 10, frames)
+    if frames is None:
+        cache = port.init_cache(B, 18)
+    else:
+        cache = port.init_cache(B, 18, frames=torch.from_numpy(frames))
+    got = serve.generate(port, cache, torch.from_numpy(prompt).long(), 10)
+    assert got.dtype == torch.int64 and got.shape == (B, 10)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b",
+                                  "falcon-mamba-7b", "whisper-base"])
 def test_serve_cli_moe_and_hybrid_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "4",
                       "--tokens", "3", "--device", "cpu"])
