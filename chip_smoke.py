@@ -15,9 +15,12 @@ routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
 (6321 routers), and the prefill and serve paths of the dense transformer
 (Gemma2-9B), the MoE family (deepseek-moe-16b, qwen2-moe-a2.7b), the
 Griffin hybrid (recurrentgemma-9b), the SSM (falcon-mamba-7b) and the
-encoder-decoder (whisper-base), each at its full published width.
-Each path's kernel counts are set to 0 just before it and read just
-after.  Phases, one JSON line each:
+encoder-decoder (whisper-base), each at its full published width, and
+the training path (qwen2-0.5b at its full width, through the
+flash-attention backward kernel).  Each path's kernel counts are set to
+0 just before it and read just after.  Phases, one JSON line each
+(``python3 chip_smoke.py train`` runs the named phases alone, a
+development run that then fails for the kernels it did not launch):
 
   device     the card's name and power limit
   build      the nvcc build and its seconds
@@ -147,13 +150,46 @@ after.  Phases, one JSON line each:
              time in the breakdown; float32 at 4 layers
   encdec     the same for whisper-base (6 + 6 layers, d_model 512, 8 heads
              of 64, 1500 frames; no depth cut anywhere): random bf16 frames
-             (the serve CLI's, in the model's dtype) with every forward and
-             every `init_cache`; the prefill on 1500 frames and 448 tokens
+             (the model's dtype, so the encoder keeps the sm90 route; the
+             serve CLI draws float32 ones, as the reference) with every
+             forward and every `init_cache`; the prefill on 1500 frames and 448 tokens
              (the published text context) with 12 sm90 launches (6
              non-causal at S = 1500, 6 causal at S = 448); the serve run
              with 6 launches an `init_cache` (the encoder) and none a
              decode step; float32 of the whole model (12 CUDA-core
              launches) on 1500 frames
+  train      the training path (`train.make_train_step`, as
+             `launch.train --preset full --data fixed` builds it): the
+             flash-attention backward kernel (csrc/flash_attention_bwd.cu,
+             through the autograd Function around both forward kernels)
+             against its plain version (autograd through `attention_ref`)
+             at FLASH_CASES in both dtypes, at a qwen2-0.5b train layer
+             (B = 4, 14/2 heads, S = 2048, D = 64, causal; bf16 and fp32),
+             Gemma2-9B's local layer (16/8 heads, D = 256, softcap 50,
+             window 4096, S = 4096; fp32) and whisper-base's encoder (8/8
+             heads, D = 64, non-causal, S = 1500; fp32), each gradient
+             within FLASH_BWD_TOL of its largest magnitude, with the
+             kernel's, the plain version's and SDPA's backward times
+             (CUDA events, median of 10) beside the bound (10 D flops a
+             pair and head at the bf16 tensor-core rate); then
+             qwen2-0.5b at its published widths (24 layers, d_model 896,
+             14/2 heads of 64, d_ff 4864, vocab 151,936, tied), bf16,
+             remat "full", AdamW(cosine_schedule(1e-3, 10, 11),
+             weight_decay 0), one fixed batch of B = 4, S = 2048, 11 steps
+             (the first a warm-up): per step the loss, grad norm and wall
+             ms, 48 sm90 and 24 backward launches a step, the loss finite
+             and falling by at least 0.5, tokens/s, peak memory, a
+             torch.profiler breakdown of one more step (the backward
+             kernel's share) and its forward / backward / optimizer
+             split; float32 without remat (B = 2, S = 512, 3 steps: 24
+             CUDA-core and 24 backward launches a step, finite and
+             falling); one float32 step at full width and 2 layers (B =
+             2, S = 128, TF32 off) on the card against the CPU (loss
+             within 1e-5 relative, grad norm 1e-4, every gradient leaf
+             within 1e-4 of its largest magnitude, every attention weight
+             with a nonzero gradient); and a restart: the state after
+             step 1 saved with `train.checkpoint.save`, restored, and
+             step 2 run from both, bit for bit
 
 The kernels phase also holds both flash-attention kernels against their
 plain version: the sm90 tensor-core kernel (csrc/flash_attention_sm90.cu,
@@ -183,7 +219,9 @@ it).  In the kernel table the sm90 kernel's launches are the Gemma2-9B
 bf16 prefill's (the MoE, hybrid, SSM and encoder-decoder prefills' in
 `launches_by_path`, its times at their shapes in `other_path_shapes`),
 the CUDA-core kernel's those of the Gemma2-9B float32 consistency run
-(whisper-base's in `launches_by_path`).
+(whisper-base's and the float32 train run's in `launches_by_path`), the
+backward kernel's those of the bf16 train run (11 steps; the float32
+run's in `launches_by_path`), its times the qwen2-0.5b train layer's.
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -273,6 +311,23 @@ ENCDEC = "whisper-base"
 WHISPER_TEXT_S = 448
 CONSISTENCY_LAYERS = {GEMMA: CONSISTENCY["layers"], "deepseek-moe-16b": 4,
                       "qwen2-moe-a2.7b": 4, HYBRID: 5, SSM: 4, ENCDEC: 6}
+# the training path: qwen2-0.5b (the reference CLI's default --arch and
+# tests/test_train.py's config) at its published widths, bf16 with remat
+# "full", B = 4, S = 2048, one warm-up step and ten more on one fixed batch;
+# float32 without remat at B = 2, S = 512, 3 steps; float32 at 2 layers,
+# B = 2, S = 128, the card against the CPU (and the restart)
+TRAIN = {"arch": "qwen2-0.5b", "batch": 4, "seq": 2048, "steps": 11,
+         "lr": 1e-3, "warmup": 10}
+TRAIN_FP32 = {"batch": 2, "seq": 512, "steps": 3}
+TRAIN_CHECK = {"layers": 2, "batch": 2, "seq": 128, "loss_rel": 1e-5,
+               "norm_rel": 1e-4, "leaf_of_max": 1e-4}
+# the backward kernel against its plain version on the card: each gradient
+# within this share of its largest magnitude (the kernel sums keys, heads
+# and D in other orders than cuBLAS; in bf16 the plain version works from
+# the float32 output, the kernel from the bf16 one the forward returns),
+# plus, in float32, 1e-7 absolute where a gradient is 0 but for rounding
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FLASH_BWD_ATOL = {"float32": 1e-7, "bfloat16": 0.0}
 
 
 def emit(obj):
@@ -1755,6 +1810,9 @@ def device_time_by_kernel(torch, fn, scopes=()):
             "flash_ms": sum(r[1] for r in rows
                             if "flash_attention_kernel" in r[0]
                             or "flash_attention_sm90_kernel" in r[0]),
+            "flash_bwd_ms": sum(r[1] for r in rows
+                                if "bwd_dq_kernel" in r[0]
+                                or "bwd_dkdv_kernel" in r[0]),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                     for k, ms, n in rows[:6]]}
 
@@ -1836,6 +1894,13 @@ def breakdown(prof):
 
 
 def drive_lm(torch, arch, seq):
+    """`_drive_lm` under ``torch.inference_mode()``: the models' ``forward``
+    runs under the caller's grad mode, and serve runs without autograd."""
+    with torch.inference_mode():
+        return _drive_lm(torch, arch, seq)
+
+
+def _drive_lm(torch, arch, seq):
     """`arch` at its published widths, bf16, random parameters from seed 0
     on the card: the prefill (`forward`, B = 1, S = `seq`, all layers, one
     sm90 flash-attention launch an attention layer and no CUDA-core one),
@@ -1881,8 +1946,7 @@ def drive_lm(torch, arch, seq):
                            device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.LAUNCHES = 0  # the prefill path's counts start here
-    ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0)
+    reset_flash_counts(ops)  # the prefill path's counts start here
     t = time.perf_counter()
     logits = model.forward(tokens, **fr1)
     torch.cuda.synchronize()
@@ -1901,7 +1965,8 @@ def drive_lm(torch, arch, seq):
         "logits_finite": check(finite, "prefill logits not finite"),
         "logits_abs_max": float(logits.abs().max()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches_ok": check(by_kernel == {"sm90": n_attn, "simt": 0},
+        "launches_ok": check(by_kernel == {"sm90": n_attn, "simt": 0,
+                                           "bwd": 0},
                              f"flash launches {by_kernel} for {n_attn} "
                              f"bf16 attention layers")}
     del logits
@@ -1979,8 +2044,7 @@ def drive_lm(torch, arch, seq):
     toks = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
                          generator=gen, device="cuda")
     frc = frames_kw(torch, cfg, c["batch"], torch.float32, gen)
-    ops.LAUNCHES = 0  # the float32 path's counts start here
-    ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0)
+    reset_flash_counts(ops)  # the float32 path's counts start here
     full = model.forward(toks, **frc)
     fwd_launches = dict(ops.LAUNCHES_BY_KERNEL)
     cache = model.init_cache(c["batch"], c["seq"], **frc)
@@ -2010,7 +2074,7 @@ def drive_lm(torch, arch, seq):
         if cfg.family == "moe" else None,
         "forward_flash_launches": fwd_launches,
         "launches_ok": check(fwd_launches == {
-            "sm90": 0, "simt": attention_layers(cfg_c)},
+            "sm90": 0, "simt": attention_layers(cfg_c), "bwd": 0},
             f"fp32 flash launches {fwd_launches}"),
         "decode_vs_forward_max_abs_err": dec_err,
         "decode_vs_forward_ok": check(dec_ok, "fp32 decode vs forward"),
@@ -2071,6 +2135,434 @@ def phase_encdec(torch, state):
     return {ENCDEC: out}
 
 
+# -- the training path -----------------------------------------------------
+
+def flash_bwd_bound_ms(b, hq, hkv, s, d, causal, window, itemsize):
+    """(bound ms, flop-bound ms, byte-bound ms) of one attention backward:
+    10 D flops per unmasked pair and head (FlashAttention-2's count: five
+    products of 2 D) at the dense bf16 tensor-core rate; q, o, do, dq
+    ([B, Hq, S, D]) and k, v, dk, dv ([B, Hkv, S, D]) read or written once
+    at HBM rate."""
+    flops = 10 * d * attention_pairs(s, causal, window) * hq * b
+    nbytes = 4 * (hq + hkv) * b * s * d * itemsize
+    by_ops = flops / BF16_TC_FLOPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), by_ops, by_bytes
+
+
+def train_attention_shapes():
+    """[(label, (B, Hq, Hkv, S, D, causal, softcap, window), dtypes)] where
+    the backward kernel is held and timed: one qwen2-0.5b train layer (B =
+    4, S = 2048), Gemma2-9B's local layer at S = 4096 (softcap, window,
+    D = 256) and whisper-base's encoder (non-causal, the ragged S = 1500)."""
+    from repro_torch.configs import get_config
+
+    q, g, w = (get_config(a) for a in (TRAIN["arch"], GEMMA, ENCDEC))
+    return [("qwen2_train", (TRAIN["batch"], q.num_heads, q.num_kv_heads,
+                             TRAIN["seq"], q.head_dim, True, None, None),
+             ("bfloat16", "float32")),
+            ("gemma2_local", (1, g.num_heads, g.num_kv_heads, NEW_PREFILL_S,
+                              g.head_dim, True, g.attn_softcap,
+                              g.local_window), ("float32",)),
+            ("whisper_encoder", (1, w.num_heads, w.num_kv_heads,
+                                 w.encoder_frames, w.head_dim, False, None,
+                                 None), ("float32",))]
+
+
+def kernel_flash_bwd(torch, state):
+    """The backward kernel (csrc/flash_attention_bwd.cu) through autograd
+    (`ops.attention` on leaves that require grad) against its plain
+    version (`attention_backward_ref`: autograd through `attention_ref`)
+    on the card, each gradient within FLASH_BWD_TOL of its largest
+    magnitude: at FLASH_CASES in both dtypes and at
+    `train_attention_shapes`; then the kernel's, the plain version's and
+    (where it computes the same function) SDPA's backward times beside
+    the bound at those shapes."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_backward_ref
+
+    rows, times = [], {}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def inputs(shape, dtype, seed):
+        b, hq, hkv, s, d = shape[:5]
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.standard_normal(sh) * sc).to(
+            "cuda", dtype) for sh, sc in (((b, hq, s, d), 0.5),
+                                          ((b, hkv, s, d), 0.5),
+                                          ((b, hkv, s, d), 0.5),
+                                          ((b, hq, s, d), 1.0))]
+
+    def hold(label, x, causal, cap, win):
+        """Gradients through the autograd Function against the plain
+        backward; returns the forward's output (for the timings)."""
+        q, k, v, do = x
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = ops.attention(*leaves, causal=causal, softcap=cap, window=win)
+        got = torch.autograd.grad(out, leaves, do)
+        want = attention_backward_ref(q, k, v, do, causal=causal,
+                                      softcap=cap, window=win)
+        torch.cuda.synchronize()
+        name = str(q.dtype).split(".")[-1]
+        row, ok = {"case": label, "dtype": name}, True
+        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            err, top = float((g - w).abs().max()), float(w.abs().max())
+            bar = FLASH_BWD_TOL[name] * top + FLASH_BWD_ATOL[name]
+            row[grad] = {"max_abs_err": err, "max_abs_ref": top,
+                         "share_of_bar": err / bar}
+            ok = ok and bool(torch.isfinite(g).all()) and err <= bar
+            worst[name] = max(worst[name], err)
+        row["ok"] = ok
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"flash_attention backward differs from "
+                                 f"its plain version: {row}")
+        return out.detach()
+
+    def timed(x, o, causal, cap, win):
+        q, k, v, do = x
+        b, hq, s, d = q.shape
+        hkv = k.shape[1]
+        bound, by_ops, by_bytes = flash_bwd_bound_ms(
+            b, hq, hkv, s, d, causal, win, q.element_size())
+        ms = gpu_ms(torch, lambda: ops._launch_bwd(q, k, v, o, do, causal,
+                                                   cap, win, None),
+                    samples=10)
+        row = {"shape": [b, hq, hkv, s, d], "causal": causal,
+               "softcap": cap, "window": win, "ms": ms,
+               "plain_ms": gpu_ms(torch, lambda: attention_backward_ref(
+                   q, k, v, do, causal=causal, softcap=cap, window=win),
+                   samples=3, warmup=1),
+               "plain_includes": "its forward (autograd through "
+                                 "attention_ref)",
+               "bound_ms": bound, "flops_ms": by_ops, "bytes_ms": by_bytes,
+               "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+               "bound_share": bound / ms, "library_ms": None,
+               "library_reason": "scaled_dot_product_attention has no "
+                                 "softcap and takes a window only as a mask"}
+        if cap is None and win is None:
+            row["library_reason"] = (
+                f"the same function: the backward of scaled_dot_product_"
+                f"attention(is_causal={causal}, enable_gqa={hq != hkv})")
+            try:  # the yardstick only: the port never calls it
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                sdpa = F.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, enable_gqa=hq != hkv)
+                lib = lambda: torch.autograd.grad(  # noqa: E731
+                    sdpa, leaves, do, retain_graph=True)
+                row["library_ms"] = gpu_ms(torch, lib, samples=10)
+                row["library_dq_max_abs_err"] = float(
+                    (lib()[0].float() - ops._launch_bwd(
+                        q, k, v, o, do, causal, None, None, None)[0].float()
+                     ).abs().max())
+            except RuntimeError:  # noqa: BLE001 -- SDPA's own refusal
+                row["library_error"] = traceback.format_exc(limit=1)
+        return row
+
+    for case in FLASH_CASES:
+        b, hq, hkv, s, d, causal, cap, win = case
+        for dtype in (torch.float32, torch.bfloat16):
+            hold(str(case), inputs(case, dtype, 0), causal, cap, win)
+    for label, shape, dtypes in train_attention_shapes():
+        b, hq, hkv, s, d, causal, cap, win = shape
+        for dname in dtypes:
+            x = inputs(shape, getattr(torch, dname), 5)
+            full = f"{label} {(b, hq, hkv, s, d)} causal {causal} " \
+                   f"softcap {cap} window {win}"
+            o = hold(full, x, causal, cap, win)
+            times[f"{label}_{dname}"] = {"dtype": dname,
+                                         **timed(x, o, causal, cap, win)}
+            del x, o
+            torch.cuda.empty_cache()
+    main = times["qwen2_train_bfloat16"]
+    state["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/ref.py:13 (no Pallas "
+                    "counterpart: the reference differentiates attention_ref "
+                    "by XLA autodiff)",
+        "max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_computes": main["library_reason"],
+        "timed_at": "one qwen2-0.5b train layer (B 4, 14/2 heads, S 2048, "
+                    "D 64, causal), bf16",
+        "other_shapes": {k: {key: v[key] for key in (
+            "shape", "dtype", "ms", "plain_ms", "bound_ms", "library_ms")}
+            for k, v in times.items() if k != "qwen2_train_bfloat16"}}
+    return {"checks": rows, "max_abs_err": worst, "times": times,
+            "tol_of_max": FLASH_BWD_TOL, "atol": FLASH_BWD_ATOL}
+
+
+def reset_flash_counts(ops):
+    ops.LAUNCHES = 0
+    ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0, bwd=0)
+
+
+def run_steps(torch, step_fn, st, pipe, steps, label, ops):
+    """`steps` train steps from `st` on `pipe`'s batches 0, 1, ...: per
+    step the loss, grad norm, lr, wall ms (ending in a device sync) and
+    flash launches by kernel, one JSON line each.  Returns (state, rows)."""
+    rows = []
+    for i in range(steps):
+        before = dict(ops.LAUNCHES_BY_KERNEL)
+        t = time.perf_counter()
+        st, m = step_fn(st, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rows.append({"run": label, "step": i, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "wall_ms": wall * 1e3,
+                     "flash_launches": {k: ops.LAUNCHES_BY_KERNEL[k] - n
+                                        for k, n in before.items()}})
+        emit({"phase": "train.step", **rows[-1]})
+    return st, rows
+
+
+def step_split_ms(torch, model, opt, st, batch):
+    """Device ms of one train step's forward, backward (the remat recompute
+    included) and optimizer update: CUDA events between the pieces that
+    `train_step.value_and_grad` and `make_train_step` run."""
+    from repro_torch.models.common import tree_from_items, tree_items
+    from repro_torch.train.losses import model_loss
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    items = tree_items(st["params"])
+    leaves = [leaf.detach().requires_grad_(True) for _, leaf in items]
+    tree = tree_from_items((p, leaf) for (p, _), leaf in zip(items, leaves))
+    ev[0].record()
+    with torch.enable_grad():
+        loss = model_loss(model, tree, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    opt.update(tree_from_items((p, g) for (p, _), g in zip(items, grads)),
+               st["opt"], st["params"])
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {"forward_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "optimizer_ms": ev[2].elapsed_time(ev[3])}
+
+
+def phase_train(torch, state):
+    """The training path (`train.make_train_step` as `launch.train` builds
+    it): the backward kernel's holds and times (`kernel_flash_bwd`);
+    qwen2-0.5b at its published widths in bf16 with remat, TRAIN["steps"]
+    steps on one fixed batch (`--data fixed`: the markov generator's V x V
+    matrix would take 185 GB at this vocabulary) -- the loss finite and
+    falling by at least 0.5, 2 sm90 launches and 1 backward launch a layer
+    and step, tokens/s, peak memory, a profile and a split of one more
+    step; the same model in float32 without remat (the CUDA-core forward
+    and the backward kernel in float32); one float32 step at full width
+    and 2 layers on the card against the same on the CPU; and a restart
+    from a checkpoint, bit for bit."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.api import model_parts
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.train import (AdamW, DataConfig, SyntheticPipeline,
+                                   cosine_schedule, init_state,
+                                   make_train_step)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import value_and_grad
+
+    out, problems = {}, []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    out["kernel"] = kernel_flash_bwd(torch, state)
+    torch.cuda.empty_cache()
+
+    # qwen2-0.5b, bf16, remat "full", as `launch.train --preset full
+    # --data fixed` builds it
+    cfg = get_config(TRAIN["arch"])
+    n = cfg.num_layers
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0, remat="full")
+    opt = AdamW(learning_rate=cosine_schedule(TRAIN["lr"], TRAIN["warmup"],
+                                              TRAIN["steps"]),
+                weight_decay=0.0)
+    step_fn = make_train_step(model, opt)
+    pipe = SyntheticPipeline(DataConfig(TRAIN["batch"], TRAIN["seq"],
+                                        cfg.vocab_size, "fixed", seed=0),
+                             device="cuda")
+    st = init_state(model, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts(ops)  # the train path's counts start here
+    st, rows = run_steps(torch, step_fn, st, pipe, TRAIN["steps"], "bf16",
+                         ops)
+    launches = dict(ops.LAUNCHES_BY_KERNEL)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in rows]
+    walls = sorted(r["wall_ms"] for r in rows[1:])  # step 0 warms up
+    step_ms = walls[len(walls) // 2]
+    per_step = {"sm90": 2 * n, "simt": 0, "bwd": n}
+    batch = pipe.batch_at(0)
+    prof = device_time_by_kernel(torch, lambda: step_fn(st, batch),
+                                 ("train.",))
+    split = step_split_ms(torch, model, opt, st, batch)
+    out["bf16"] = {
+        "config": {**config_record(cfg), "remat": "full", "optimizer":
+                   "AdamW(cosine_schedule(1e-3, 10, steps), weight_decay=0)",
+                   "data": "fixed (one memorizable batch)",
+                   "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                   "init_s": init_s},
+        "steps": rows, "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_ok": check(all(np.isfinite(losses))
+                         and losses[-1] <= losses[0] - 0.5,
+                         f"bf16 losses {losses}"),
+        "step_ms_median": step_ms, "step_ms_runs": walls,
+        "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_ms * 1e3,
+        "peak_mem_gb": peak, "flash_launches": launches,
+        "flash_launches_per_step": rows[-1]["flash_launches"],
+        "launches_ok": check(all(r["flash_launches"] == per_step
+                                 for r in rows),
+                             f"flash launches a step "
+                             f"{[r['flash_launches'] for r in rows]}, "
+                             f"not {per_step}"),
+        "profile": prof, "split_ms": split,
+        "backward_kernel_share": prof.get("flash_bwd_ms", 0.0)
+        / prof["device_ms"] if prof.get("device_ms") else None,
+        "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}
+    state["flash_bwd_launches"] = launches["bwd"]
+    state["flash_bwd_launches_by_path"] = {"qwen2-0.5b train bf16":
+                                           launches["bwd"]}
+    state.setdefault("flash_sm90_launches_by_path", {})[
+        "qwen2-0.5b train bf16"] = launches["sm90"]
+    del model, st, step_fn, pipe, batch
+    torch.cuda.empty_cache()
+
+    # the same model in float32 without remat
+    f = TRAIN_FP32
+    cfg32 = cfg.with_(dtype="float32")
+    model = build_model(cfg32, device="cuda", seed=0, remat="none")
+    opt32 = AdamW(learning_rate=cosine_schedule(TRAIN["lr"], TRAIN["warmup"],
+                                                f["steps"]), weight_decay=0.0)
+    pipe = SyntheticPipeline(DataConfig(f["batch"], f["seq"], cfg.vocab_size,
+                                        "fixed", seed=0), device="cuda")
+    reset_flash_counts(ops)
+    st, rows = run_steps(torch, make_train_step(model, opt32),
+                         init_state(model, opt32), pipe, f["steps"], "fp32",
+                         ops)
+    launches32 = dict(ops.LAUNCHES_BY_KERNEL)
+    losses = [r["loss"] for r in rows]
+    out["fp32"] = {
+        "layers": n, "batch": f["batch"], "seq": f["seq"], "remat": "none",
+        "steps": rows, "flash_launches": launches32,
+        "loss_ok": check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                         f"fp32 losses {losses}"),
+        "launches_ok": check(launches32 == {"sm90": 0, "simt": n * f["steps"],
+                                            "bwd": n * f["steps"]},
+                             f"fp32 flash launches {launches32}")}
+    state["flash_bwd_launches_by_path"]["qwen2-0.5b train fp32"] = \
+        launches32["bwd"]
+    state.setdefault("flash_simt_launches_by_path", {})[
+        "qwen2-0.5b train fp32"] = launches32["simt"]
+    del model, st, pipe
+    torch.cuda.empty_cache()
+
+    # card against CPU: float32, full width, 2 layers, TF32 off
+    c = TRAIN_CHECK
+    cfg_c = cfg.with_(num_layers=c["layers"], dtype="float32")
+    cls = model_parts(cfg_c)[1]
+    cpu = build_model(cfg_c, device="cpu", seed=1, remat="full")
+    card = cls(cfg_c, tree_map(lambda a: a.detach().cuda(),
+                               cpu.params.tree()), remat="full")
+    pipe = SyntheticPipeline(DataConfig(c["batch"], c["seq"], cfg.vocab_size,
+                                        "random", seed=1), device="cpu")
+    batch = pipe.batch_at(0)
+    reset_flash_counts(ops)
+    loss_g, grads_g = value_and_grad(card, card.params.tree(),
+                                     {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    check_launches = dict(ops.LAUNCHES_BY_KERNEL)
+    t = time.perf_counter()
+    loss_c, grads_c = value_and_grad(cpu, cpu.params.tree(), batch)
+    cpu_s = time.perf_counter() - t
+    leaves, zero_attn = {}, []
+    for (path, g), (_, w) in zip(tree_items(grads_g), tree_items(grads_c)):
+        g = g.cpu()
+        err, top = float((g - w).abs().max()), float(w.abs().max())
+        leaves["/".join(path)] = err / top if top else err
+        if path[-2:-1] == ("attn",) and not float(g.abs().max()) > 0:
+            zero_attn.append("/".join(path))
+    norm_g, norm_c = float(global_norm(grads_g)), float(global_norm(grads_c))
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    norm_rel = abs(norm_g - norm_c) / norm_c
+    out["card_vs_cpu"] = {
+        "layers": c["layers"], "batch": c["batch"], "seq": c["seq"],
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+        "loss_rel": loss_rel, "grad_norm_card": norm_g,
+        "grad_norm_cpu": norm_c, "grad_norm_rel": norm_rel,
+        "worst_leaf": max(leaves, key=leaves.get),
+        "worst_leaf_err_of_max": max(leaves.values()),
+        "leaf_err_of_max": leaves, "cpu_s": cpu_s,
+        "flash_launches": check_launches,
+        "ok": check(loss_rel <= c["loss_rel"] and norm_rel <= c["norm_rel"]
+                    and max(leaves.values()) <= c["leaf_of_max"],
+                    "card and CPU train steps disagree"),
+        "attention_grads_nonzero": check(not zero_attn,
+                                         f"zero attention grads {zero_attn}"),
+        "launches_ok": check(check_launches == {
+            "sm90": 0, "simt": 2 * c["layers"], "bwd": c["layers"]},
+            f"card-vs-CPU flash launches {check_launches}")}
+    del cpu, grads_c, grads_g
+
+    # restart: save after step 1, restore, step 2 from both: bit for bit
+    opt_r = AdamW(learning_rate=cosine_schedule(TRAIN["lr"], TRAIN["warmup"],
+                                                3), weight_decay=0.0)
+    step_r = make_train_step(card, opt_r)
+    batches = [{k: v.cuda() for k, v in pipe.batch_at(i).items()}
+               for i in (1, 2)]
+    s1, _ = step_r(init_state(card, opt_r), batches[0])
+    d = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    t = time.perf_counter()
+    ckpt.save(s1, d, 1)
+    back = ckpt.restore(s1, d, 1)
+    io_s = time.perf_counter() - t
+    nbytes = sum(os.path.getsize(os.path.join(d, "step_1", x))
+                 for x in os.listdir(os.path.join(d, "step_1")))
+    shutil.rmtree(d, ignore_errors=True)
+    same = all(torch.equal(a, b) for (_, a), (_, b)
+               in zip(tree_items(s1), tree_items(back)))
+    r1, m1 = step_r(s1, batches[1])
+    r2, m2 = step_r(back, batches[1])
+    bits = float(m1["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a, b) for (_, a), (_, b)
+        in zip(tree_items(r1), tree_items(r2)))
+    out["restart"] = {
+        "model": f"{cfg.name} float32, {c['layers']} layers, full width",
+        "checkpoint_bytes": nbytes, "save_restore_s": io_s,
+        "restored_bit_identical": check(same, "restored state differs"),
+        "step2_bit_identical": check(bits, "step 2 after a restart differs"),
+        "loss_step2": float(m1["loss"])}
+    del card, s1, back, r1, r2
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"train path failed its checks: {problems}")
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -2088,25 +2580,34 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke, state = Smoke(), {}
+    phases = [("kernels", phase_kernels, (torch, state)),
+              ("parity", phase_parity, (torch,)),
+              ("main_path", phase_main_path, (torch, state)),
+              ("certified", phase_certified, (torch, state)),
+              ("packet", phase_packet, (torch, state)),
+              ("analysis", phase_analysis, (torch, state)),
+              ("model", phase_model, (torch, state)),
+              ("moe", phase_moe, (torch, state)),
+              ("hybrid", phase_hybrid, (torch, state)),
+              ("ssm", phase_ssm, (torch, state)),
+              ("encdec", phase_encdec, (torch, state)),
+              ("train", phase_train, (torch, state))]
+    # `python3 chip_smoke.py train ...` runs the named phases alone (a
+    # development run: the kernel line then misses the others' kernels and
+    # the run fails)
+    wanted = set(sys.argv[1:]) or {name for name, _, _ in phases}
     smoke.phase("device", phase_device, torch)
     if smoke.phase("build", phase_build):
-        smoke.phase("kernels", phase_kernels, torch, state)
-        smoke.phase("parity", phase_parity, torch)
-        smoke.phase("main_path", phase_main_path, torch, state)
-        smoke.phase("certified", phase_certified, torch, state)
-        smoke.phase("packet", phase_packet, torch, state)
-        smoke.phase("analysis", phase_analysis, torch, state)
-        smoke.phase("model", phase_model, torch, state)
-        smoke.phase("moe", phase_moe, torch, state)
-        smoke.phase("hybrid", phase_hybrid, torch, state)
-        smoke.phase("ssm", phase_ssm, torch, state)
-        smoke.phase("encdec", phase_encdec, torch, state)
+        for name, fn, args in phases:
+            if name in wanted:
+                smoke.phase(name, fn, *args)
     launches = {"path_costs": state.get("launches", 0),
                 "minplus": state.get("minplus_launches", 0),
                 "minplus_hops": state.get("minplus_hops_launches", 0),
                 "gf_crossprod": state.get("gf_launches", 0),
                 "flash_attention": state.get("flash_simt_launches", 0),
-                "flash_attention_sm90": state.get("flash_sm90_launches", 0)}
+                "flash_attention_sm90": state.get("flash_sm90_launches", 0),
+                "flash_attention_bwd": state.get("flash_bwd_launches", 0)}
     kernels = [{**state[name], "launches": launches[name]}
                for name in launches if name in state]
     for k in kernels:
@@ -2118,10 +2619,14 @@ def main():
                 **state.get("flash_sm90_launches_by_path", {})}
         if k["name"] == "flash_attention":
             # `launches` is the Gemma2-9B float32 run's; whisper-base's
-            # (its whole model in float32) beside it
+            # (its whole model in float32) and the float32 train run's
+            # beside it
             k["launches_by_path"] = {
                 GEMMA: k["launches"],
                 **state.get("flash_simt_launches_by_path", {})}
+        if k["name"] == "flash_attention_bwd":
+            # `launches` is the bf16 train run's; the float32 one's beside
+            k["launches_by_path"] = state.get("flash_bwd_launches_by_path")
         if k["name"] == "path_costs":
             # the main path's count is `launches`; the certified path's
             # beside it

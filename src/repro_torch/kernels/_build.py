@@ -42,7 +42,8 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
                 "minplus/csrc/minplus_dpx.cu"),
     "gf_crossprod": ("gf_crossprod/csrc/crossprod.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",
-                        "flash_attention/csrc/flash_attention_sm90.cu"),
+                        "flash_attention/csrc/flash_attention_sm90.cu",
+                        "flash_attention/csrc/flash_attention_bwd.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

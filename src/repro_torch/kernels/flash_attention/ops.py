@@ -20,9 +20,21 @@ On the card the least time is the operations (4 D flops per unmasked
 for one Gemma2-9B global layer at S = 8192, 0.42 ms for a local one (the
 kernels' times are in PERF.md).
 
+Gradients.  Where autograd needs one (grad enabled and q, k or v
+requiring grad), a CUDA call goes through `_Attention`, a
+``torch.autograd.Function`` whose forward launches the same kernel as
+above and saves q, k, v and the output, and whose backward launches
+`csrc/flash_attention_bwd.cu` (dq, dk, dv; float32 or bf16, any head dim
+the CUDA-core kernel takes, deterministic).  The JAX package has no
+counterpart: its Pallas kernel defines no VJP, and its train paths
+differentiate ``ref.attention_ref`` with XLA.  Under ``inference_mode``,
+or with no input requiring grad, nothing is saved and the forward gives
+the same bits as without autograd.  A CPU call is differentiated through
+the plain version by autograd itself.
+
 `LAUNCHES` counts kernel launches (and nothing else), so a run can show
 that its path went through a kernel; `LAUNCHES_BY_KERNEL` splits the count
-by route.
+by route ("sm90", "simt") and counts the backward ("bwd") apart.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ from .ref import attention_chunked, attention_ref
 __all__ = ["attention", "smem_bytes", "LAUNCHES", "LAUNCHES_BY_KERNEL"]
 
 LAUNCHES = 0
-LAUNCHES_BY_KERNEL: Dict[str, int] = {"sm90": 0, "simt": 0}
+LAUNCHES_BY_KERNEL: Dict[str, int] = {"sm90": 0, "simt": 0, "bwd": 0}
 
 _CHUNK_THRESHOLD = 4096  # the plain version goes q-block by q-block from here
 _MAX_HEAD_DIM = 256
@@ -50,6 +62,11 @@ _SYMBOLS = {("simt", torch.float32): "flash_attention_f32",
             ("sm90", torch.bfloat16): "flash_attention_bf16_sm90"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_BWD_SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
+                torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p])
 _launchers = {}
 
 
@@ -61,10 +78,13 @@ def _route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def _launcher(route: str, dtype: torch.dtype):
+    """The C launcher of `route` ("sm90", "simt" or "bwd") for `dtype`."""
     fn = _launchers.get((route, dtype))
     if fn is None:
-        fn = getattr(_build.load("flash_attention"), _SYMBOLS[route, dtype])
-        fn.argtypes = _ARGTYPES
+        bwd = route == "bwd"
+        fn = getattr(_build.load("flash_attention"),
+                     _BWD_SYMBOLS[dtype] if bwd else _SYMBOLS[route, dtype])
+        fn.argtypes = _BWD_ARGTYPES if bwd else _ARGTYPES
         fn.restype = ctypes.c_int
         _launchers[route, dtype] = fn
     return fn
@@ -131,8 +151,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k, v, causal, softcap, window, scale,
-                   _route(q.dtype, q.shape[3]))
+    route = _route(q.dtype, q.shape[3])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, softcap, window, scale,
+                                route)
+    return _launch(q, k, v, causal, softcap, window, scale, route)
+
+
+class _Attention(torch.autograd.Function):
+    """The `route` kernel forward, `csrc/flash_attention_bwd.cu` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, window, scale, route):
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        out = _launch(q, k, v, causal, softcap, window, scale, route)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, softcap, window, scale)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*_launch_bwd(q, k, v, out, dout, *ctx.args),
+                None, None, None, None, None)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -166,3 +209,45 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     LAUNCHES += 1
     LAUNCHES_BY_KERNEL[route] += 1
     return out
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, dout: torch.Tensor, causal: bool,
+                softcap: Optional[float], window: Optional[int],
+                scale: Optional[float]):
+    """(dq, dk, dv) from the backward kernel, on checked CUDA tensors: q, k,
+    v and `out` as the forward saw them, `dout` the output's gradient.
+    `_Attention.backward` calls it; chip_smoke.py times it through it."""
+    global LAUNCHES
+    b, hq, s, d = q.shape
+    if q.dtype not in _BWD_SYMBOLS or d % 4 != 0 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"the backward kernel does not take {q.dtype} at "
+                         f"head_dim {d} (float32 or bf16, a multiple of 4 "
+                         f"up to {_MAX_HEAD_DIM})")
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} and out "
+                         f"{tuple(out.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out, dout = _aligned(out), _aligned(dout.to(q.dtype))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    # per-row log-sum-exp and do . o, written by the kernel's first pass
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    scale = scale if scale is not None else d ** -0.5
+    with named_scope("flash_attention_bwd"), torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _launcher("bwd", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), b, hq, k.shape[1], s, d,
+            int(causal), float(softcap) if softcap is not None else 0.0,
+            int(window) if window is not None else 0, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES += 1
+    LAUNCHES_BY_KERNEL["bwd"] += 1
+    return dq, dk, dv

@@ -1,7 +1,10 @@
 """Plain PyTorch GQA attention with softcap / sliding window / causal mask.
 
-The CPU path of `ops.attention` and the oracle of the CUDA kernel
-(`csrc/flash_attention.cu`).  Same arithmetic as the JAX package's
+The CPU path of `ops.attention` and the oracle of the CUDA kernels
+(`csrc/flash_attention.cu`, `csrc/flash_attention_sm90.cu`); autograd
+through `attention_ref` (`attention_backward_ref`) is the oracle of the
+backward kernel (`csrc/flash_attention_bwd.cu`), as XLA autodiff through
+the JAX package's ``attention_ref`` is its train path's gradient.  Same arithmetic as the JAX package's
 ``kernels/flash_attention/ref.py``: q cast to float32 and scaled, logits
 in float32, masked entries set to the finite ``NEG_INF`` (not ``-inf``),
 softmax over the full key range, output in q's dtype.
@@ -13,7 +16,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "attention_ref", "attention_chunked"]
+__all__ = ["NEG_INF", "attention_ref", "attention_chunked",
+           "attention_backward_ref"]
 
 NEG_INF = -1e30
 
@@ -90,3 +94,19 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, :, :, q0:q0 + block_q] = torch.einsum(
             "bhgqk,bhkd->bhgqd", _softmax_rows(logits), vf)
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, causal: bool = True,
+                           softcap: Optional[float] = None,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None):
+    """(dq, dk, dv) of `attention_ref` at (q, k, v) for the output gradient
+    `do`, in q's, k's and v's dtypes: ``torch.autograd.grad`` through the
+    plain version (masked pairs get no gradient, softcapped logits the
+    ``1 - tanh^2`` factor, grouped heads the sum over their group)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, softcap=softcap,
+                            window=window, scale=scale)
+        return torch.autograd.grad(out, leaves, do)

@@ -13,10 +13,10 @@ decode step (the fused prefill is ``model.forward``), then greedy
 (``--temperature 0``) or sampled decoding.  Runs on the card unless
 ``--device cpu``.  Every family is ported; MoE decode routes dropless, as
 the reference's does.  For the encoder-decoder (Whisper) the random frames
-[B, encoder_frames, d_model] * 0.1 come from the same generator and are
-encoded by ``init_cache``; they are drawn in the model's dtype, where the
-reference draws float32 frames (which under bf16 parameters promote its
-whole encoder to float32).  In float32 the two are the same.
+[B, encoder_frames, d_model] * 0.1 come from the same generator in
+float32, as the reference draws them, and are encoded by ``init_cache``:
+under ``--preset full`` (bf16 parameters) the encoder computes in float32,
+as the reference's promotes, on the CUDA-core flash kernel.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def main(argv=None):
     if cfg.family == "encdec":
         frames = torch.randn((args.batch, cfg.encoder_frames, cfg.d_model),
                              generator=gen, device=dev,
-                             dtype=model.dtype) * 0.1
+                             dtype=torch.float32) * 0.1
         cache = model.init_cache(args.batch, max_seq, frames=frames)
     else:
         cache = model.init_cache(args.batch, max_seq)

@@ -39,12 +39,14 @@ def model_parts(cfg: ModelConfig):
 def build_model(cfg: ModelConfig,
                 device: Union[str, torch.device, None] = "cuda",
                 dtype: Optional[torch.dtype] = None,
-                seed: int = 0) -> LanguageModel:
+                seed: int = 0, remat: str = "full") -> LanguageModel:
     """`cfg`'s model on `device` with random parameters from `seed` (a
     truncated normal per `common.init_params`, drawn on the device), in
-    `dtype` (default: the config's)."""
+    `dtype` (default: the config's).  ``remat`` is the reference's:
+    "full" (its default) recomputes each layer in the backward of a train
+    step, "none" keeps the activations; inference does neither."""
     table, cls = model_parts(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(table(cfg), gen, dtype or dtype_of(cfg.dtype), dev)
-    return cls(cfg, params)
+    return cls(cfg, params, remat=remat)

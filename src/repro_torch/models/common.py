@@ -8,6 +8,15 @@ Layer stacks are `stack_defs`-wrapped: every leaf gets a leading
 port keeps so that the two trees match name for name and shape for shape.
 The logical axes are kept for the sharding slice (`param_specs` waits for
 ``parallel/sharding``, ROADMAP Queue 1 item 10).
+
+The models' ``forward`` runs under the caller's grad mode, so a train
+step differentiates it functionally (``torch.func.functional_call`` with
+leaves in place of the frozen `ParamTree` parameters; `train.train_step`).
+Where autograd records, ``remat="full"`` (the JAX package's default)
+recomputes each layer in the backward (`LanguageModel._layer_call`), and
+the few in-place steps of the inference path take an out-of-place form
+(here `_unembed`'s softcap).  Serve runs under ``inference_mode`` and is
+unchanged.
 """
 
 from __future__ import annotations
@@ -17,13 +26,18 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 
 __all__ = ["ParamDef", "init_params", "stack_defs", "rms_norm", "dtype_of",
-           "count_params", "embed_lookup", "tree_map", "ParamTree",
-           "LanguageModel"]
+           "count_params", "embed_lookup", "tree_map", "tree_leaves",
+           "tree_items", "tree_from_items", "records_grad", "ParamTree",
+           "LanguageModel", "REMAT"]
+
+REMAT = ("full", "none")
 
 # fill a large tensor this many elements at a time, so the float32 draw
 # beside a bfloat16 [layers, d, d_ff] stack stays small
@@ -49,19 +63,51 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """`fn` over the leaves of nested dicts (a parameter or cache tree)."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """`fn` over the leaves of nested dicts (a parameter or cache tree),
+    with the matching leaves of the trees `rest` as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
-def _leaves(tree: Any):
+def tree_leaves(tree: Any):
+    """The leaves of nested dicts, in insertion order."""
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from tree_leaves(v)
     else:
         yield tree
+
+
+def tree_items(tree: Any, prefix: Tuple[str, ...] = ()):
+    """[(path, leaf)] of nested dicts in the JAX tree order (``jax.tree.
+    flatten`` sorts dict keys at every level); a path is a tuple of keys."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for key in sorted(tree):
+        out.extend(tree_items(tree[key], prefix + (key,)))
+    return out
+
+
+def tree_from_items(items) -> Dict[str, Any]:
+    """The nested dicts of (path, leaf) pairs (`tree_items`' inverse)."""
+    out: Dict[str, Any] = {}
+    for path, leaf in items:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records an op on `tensors`: grad mode is on and one
+    of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def _init_one(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
@@ -125,12 +171,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 def count_params(tree: Any) -> int:
     """Number of parameters in a tree of tensors or of `ParamDef`s (the
     latter allocates nothing)."""
-    return int(sum(np.prod(p.shape, dtype=np.int64) for p in _leaves(tree)))
+    return int(sum(np.prod(p.shape, dtype=np.int64)
+                   for p in tree_leaves(tree)))
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows `tokens` of `table` (the JAX package's gather path, no mesh)."""
-    return table[tokens]
+    """Rows `tokens` of `table` (the JAX package's gather path, no mesh).
+    ``F.embedding``: the same gather as ``table[tokens]``, with a backward
+    that sums repeated rows in a fixed order (PyTorch's determinism notes
+    list indexing's backward on the CPU as nondeterministic), so a train
+    step repeats bit for bit."""
+    return F.embedding(tokens, table)
 
 
 class ParamTree(nn.Module):
@@ -154,18 +205,34 @@ class ParamTree(nn.Module):
 
 class LanguageModel(nn.Module):
     """What the port's LMs share: `params` checked against their table
-    `table` (shapes, name for name) and held as frozen parameters, and the
-    embedding and unembedding the JAX models compute alike."""
+    `table` (shapes, name for name) and held as frozen parameters, the
+    embedding and unembedding the JAX models compute alike, and `remat`
+    ("full": each layer recomputed in the backward; "none")."""
 
-    def __init__(self, cfg, params: Dict[str, Any], table: Dict[str, Any]):
+    def __init__(self, cfg, params: Dict[str, Any], table: Dict[str, Any],
+                 remat: str = "full"):
         super().__init__()
         want = tree_map(lambda d: tuple(d.shape), table)
         got = tree_map(lambda t: tuple(t.shape), params)
         if want != got:
             raise ValueError(f"params do not match {cfg.name}'s table: "
                              f"expected {want}, got {got}")
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.cfg = cfg
+        self.remat = remat
         self.params = ParamTree(params)
+
+    def _layer_call(self, fn: Callable, p, x: torch.Tensor, *args):
+        """``fn(p, x, *args)``, one layer.  Where autograd records and
+        `remat` is "full", under ``torch.utils.checkpoint`` (non-reentrant):
+        the backward runs the layer again instead of keeping its
+        activations, as the reference's ``jax.checkpoint`` does; no layer
+        draws random numbers, so no RNG state is kept."""
+        if self.remat == "full" and records_grad(x, *tree_leaves(p)):
+            return checkpoint(fn, p, x, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(p, x, *args)
 
     @property
     def device(self) -> torch.device:
@@ -191,6 +258,8 @@ class LanguageModel(nn.Module):
         w = p["embedding"].T if tied else p["lm_head"]
         logits = (x @ w.to(x.dtype)).float()
         cap = self.cfg.final_softcap
-        if cap is not None:  # in place: [B, S, V] float32 is large
+        if cap is not None and records_grad(logits):
+            logits = torch.tanh(logits / cap) * cap  # the same bits
+        elif cap is not None:  # in place: [B, S, V] float32 is large
             logits.div_(cap).tanh_().mul_(cap)
         return logits

@@ -7,7 +7,10 @@ layout (`transformer.defs`, `mamba.defs`, `griffin.defs`, `whisper.defs`:
 the stacked layers, the MoE expert stacks [L, E, d, f], deepseek's
 ``layer0``, Mamba's ``in_proj`` [L, d, 2, E], Griffin's ``rec`` / ``att``
 / ``tail``, Whisper's ``encoder`` / ``decoder``), so this is a copy, with
-no reshaping.
+no reshaping.  A whole train state (``{"params", "opt": {"mu", "nu",
+"count"} | {"vr", "vc", "count"}, "step"[, "ef"]}``, the trees of
+``repro.train`` and `repro_torch.train` alike) carries over the same way,
+every leaf in its own dtype.
 """
 
 from __future__ import annotations

@@ -18,8 +18,9 @@ in place of the reference's ``lax.associative_scan``); decode carries
 cache per attention layer, both updated in place.  Attention is always
 local (windowed MQA) and goes through the flash-attention kernel in the
 prefill.  The embeddings are tied and scaled by sqrt(d_model); there is no
-final softcap, as in the reference.  ``remat``, ``mesh``, ``sp``,
-``rules`` and the sharding specs are not carried over.
+final softcap, as in the reference.  ``remat`` recomputes each block in
+the backward; ``mesh``, ``sp``, ``rules`` and the sharding specs wait for
+the sharding slice.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import torch.nn.functional as F
 from ..obs.profiler import named_scope
 from . import attention as attn
 from . import mlp as ffn
-from .common import LanguageModel, ParamDef, rms_norm, stack_defs, tree_map
+from .common import (LanguageModel, ParamDef, records_grad, rms_norm,
+                     stack_defs, tree_map)
 from .config import ModelConfig
 from .rope import default_positions
 
@@ -106,18 +108,31 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b2)``, as a Hillis-Steele scan (ceil(log2 S) passes over the whole
     sequence, each combining element t with element t - 2^j).  The sums
     run in another order than the reference's odd/even recursion, so the
-    two agree to float32 rounding, not bit for bit."""
+    two agree to float32 rounding, not bit for bit.
+
+    Where autograd records (a train step), each pass concatenates its two
+    halves instead of writing them through ``out=``, which autograd
+    refuses; the same products, so the same bits."""
     s = a.shape[1]
+    grad = records_grad(a, b)
     off = 1
     while off < s:
-        nb = torch.empty_like(b)
-        nb[:, :off] = b[:, :off]
-        torch.addcmul(b[:, off:], a[:, off:], b[:, :-off], out=nb[:, off:])
-        if 2 * off < s:  # the last pass needs no new a
-            na = torch.empty_like(a)
-            na[:, :off] = a[:, :off]
-            torch.mul(a[:, off:], a[:, :-off], out=na[:, off:])
-            a = na
+        last = 2 * off >= s  # the last pass needs no new a
+        if grad:
+            nb = torch.cat([b[:, :off], torch.addcmul(b[:, off:], a[:, off:],
+                                                      b[:, :-off])], dim=1)
+            if not last:
+                a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        else:
+            nb = torch.empty_like(b)
+            nb[:, :off] = b[:, :off]
+            torch.addcmul(b[:, off:], a[:, off:], b[:, :-off],
+                          out=nb[:, off:])
+            if not last:
+                na = torch.empty_like(a)
+                na[:, :off] = a[:, :off]
+                torch.mul(a[:, off:], a[:, :-off], out=na[:, off:])
+                a = na
         b = nb
         off *= 2
     return b
@@ -127,8 +142,9 @@ class GriffinLM(LanguageModel):
     """The hybrid LM with `params`, a tree of `defs(cfg)`'s shapes (from
     `common.init_params` or `convert.params_from_reference`)."""
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
-        super().__init__(cfg, params, defs(cfg))
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
+                 remat: str = "full"):
+        super().__init__(cfg, params, defs(cfg), remat)
 
     # -- RG-LRU mixer ----------------------------------------------------
     def _rec_mixer(self, p, h: torch.Tensor, cache=None) -> torch.Tensor:
@@ -194,18 +210,18 @@ class GriffinLM(LanguageModel):
             yield "rec", at(p["tail"], t), at(c.get("tail"), t)
 
     # -- forward ---------------------------------------------------------
-    @torch.inference_mode()
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill)."""
+        """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill, or
+        the train step's forward: it runs under the caller's grad mode)."""
         p = self.params.tree()
         b, s = tokens.shape
         if positions is None:
             positions = default_positions(b, s, device=tokens.device)
         x = self._embed(p, tokens)
         for kind, pi, _ in self._layers(p):
-            x = self._rec_block(pi, x) if kind == "rec" \
-                else self._att_block(pi, x, positions)
+            x = self._layer_call(self._rec_block, pi, x) if kind == "rec" \
+                else self._layer_call(self._att_block, pi, x, positions)
         x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)
         return self._unembed(p, x)
 

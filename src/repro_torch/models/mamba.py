@@ -14,8 +14,9 @@ place of the reference's ``lax.associative_scan``.  Decode is the O(1)
 recurrent step on the reference's cache (``conv`` [L, B, k-1, E] in the
 model dtype, ``ssm`` [L, B, E, N] float32), updated in place.  The
 reference unembeds with the embedding's transpose whatever
-``tie_embeddings`` says, and so does this model.  ``remat``, ``mesh``,
-``sp``, ``rules`` and the sharding specs are not carried over.
+``tie_embeddings`` says, and so does this model.  ``remat`` recomputes
+each layer in the backward; ``mesh``, ``sp``, ``rules`` and the sharding
+specs wait for the sharding slice.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.profiler import named_scope
-from .common import LanguageModel, ParamDef, embed_lookup, rms_norm, stack_defs
+from .common import (LanguageModel, ParamDef, embed_lookup, records_grad,
+                     rms_norm, stack_defs)
 from .config import ModelConfig
 from .griffin import lru_scan
 
@@ -48,7 +50,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     asserts).  The state entering a chunk is folded into the chunk's first
     element (b_0 <- a_0 h + b_0), so the scan starts from 0; the reference
     scans the chunk and adds (prod a) h afterwards, so the two agree to
-    float32 rounding, not bit for bit."""
+    float32 rounding, not bit for bit.  Where autograd records, the fold
+    is out of place (the same product and sum)."""
     bsz, s, e = x.shape
     n = a.shape[1]
     nchunks = max(1, s // chunk)
@@ -66,7 +69,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         da = torch.exp(dtf[..., None] * af)  # [B, cs, E, N]
         dbx = (dtf * x[:, part].float())[..., None] \
             * b[:, part, None, :].float()
-        dbx[:, 0].addcmul_(da[:, 0], h)
+        if records_grad(dbx, da, h):
+            dbx = torch.cat([torch.addcmul(dbx[:, :1], da[:, :1], h[:, None]),
+                             dbx[:, 1:]], dim=1)
+        else:
+            dbx[:, 0].addcmul_(da[:, 0], h)
         hs = lru_scan(da, dbx)
         del da, dbx
         ys.append(torch.einsum("bsen,bsn->bse", hs, c[:, part].float()))
@@ -107,8 +114,9 @@ class MambaLM(LanguageModel):
     """The SSM LM with `params`, a tree of `defs(cfg)`'s shapes (from
     `common.init_params` or `convert.params_from_reference`)."""
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
-        super().__init__(cfg, params, defs(cfg))
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
+                 remat: str = "full"):
+        super().__init__(cfg, params, defs(cfg), remat)
 
     # -- mixer -----------------------------------------------------------
     def _mixer(self, p, h: torch.Tensor, cache=None) -> torch.Tensor:
@@ -159,16 +167,19 @@ class MambaLM(LanguageModel):
         x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)
         return self._unembed(p, x, tied=True)
 
+    def _block(self, lp, x: torch.Tensor) -> torch.Tensor:
+        return x + self._mixer(lp, rms_norm(x, lp["ln"], self.cfg.norm_eps))
+
     # -- forward ---------------------------------------------------------
-    @torch.inference_mode()
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill;
+        """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill, or
+        the train step's forward: it runs under the caller's grad mode;
         `positions` is accepted and unused, as in the reference)."""
         p = self.params.tree()
         x = embed_lookup(p["embedding"], tokens)
         for lp, _ in self._layers(p):
-            x = x + self._mixer(lp, rms_norm(x, lp["ln"], self.cfg.norm_eps))
+            x = self._layer_call(self._block, lp, x)
         return self._logits(p, x)
 
     # -- decode ----------------------------------------------------------

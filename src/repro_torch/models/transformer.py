@@ -15,9 +15,9 @@ carrying the reference's weights over is a name-for-name copy
 groups of ``len(layer_pattern)`` layers is a Python loop over the stacked
 layers here; stacked layer ``i`` is of kind
 ``layer_pattern[i % len(layer_pattern)]``, and ``layer0`` is global.
-``remat``, ``mesh``, ``sp`` and ``rules`` are not carried over: inference
-has no use for them.  The MoE blocks route dropless in decode, as the
-reference's do.
+``remat`` recomputes each block in the backward (`LanguageModel.
+_layer_call`); ``mesh``, ``sp`` and ``rules`` wait for the sharding slice.
+The MoE blocks route dropless in decode, as the reference's do.
 """
 
 from __future__ import annotations
@@ -86,8 +86,9 @@ class TransformerLM(LanguageModel):
     """The dense or MoE LM with `params`, a tree of `defs(cfg)`'s shapes (from
     `common.init_params` or `convert.params_from_reference`)."""
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
-        super().__init__(cfg, params, defs(cfg))
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
+                 remat: str = "full"):
+        super().__init__(cfg, params, defs(cfg), remat)
 
     def _layers(self, p):
         """(kind, parameters of stacked layer i) for every stacked layer, as
@@ -127,17 +128,18 @@ class TransformerLM(LanguageModel):
             return mrope_positions(b, s, device=tokens.device)
         return default_positions(b, s, device=tokens.device)
 
-    @torch.inference_mode()
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill)."""
+        """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill, or
+        the train step's forward: it runs under the caller's grad mode)."""
         p = self.params.tree()
         positions = self._positions(tokens, positions)
         x = self._embed(p, tokens)
         if "layer0" in p:
-            x = self._block(p["layer0"], x, "global", positions)
+            x = self._layer_call(self._block, p["layer0"], x, "global",
+                                 positions)
         for kind, pi in self._layers(p):
-            x = self._block(pi, x, kind, positions)
+            x = self._layer_call(self._block, pi, x, kind, positions)
         x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)
         return self._unembed(p, x)
 

@@ -17,8 +17,9 @@ The parameters keep the reference's tree (``embedding``, ``enc_norm``,
 computes in the dtype of what it is given, as JAX's promotion does: the
 encoder in the frames' dtype, the decoder in the embedding's, and the
 cross keys and values in the wider of the memory's and the decoder's.
-``remat``, ``mesh``, ``sp``, ``rules`` and the sharding specs are not
-carried over.
+``remat`` recomputes each encoder and decoder layer in the backward;
+``mesh``, ``sp``, ``rules`` and the sharding specs wait for the sharding
+slice.
 """
 
 from __future__ import annotations
@@ -104,8 +105,9 @@ class WhisperModel(LanguageModel):
     """The encoder-decoder with `params`, a tree of `defs(cfg)`'s shapes
     (from `common.init_params` or `convert.params_from_reference`)."""
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
-        super().__init__(cfg, params, defs(cfg))
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
+                 remat: str = "full"):
+        super().__init__(cfg, params, defs(cfg), remat)
 
     # -- encoder ---------------------------------------------------------
     def _encode(self, p, frames: torch.Tensor) -> torch.Tensor:
@@ -116,18 +118,21 @@ class WhisperModel(LanguageModel):
                                    frames.device)[None]
             positions = default_positions(b, f, device=frames.device)
             for i in range(cfg.encoder_layers):
-                lp = _layer(p["encoder"], i)
-                h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-                x = x + attn.attn_apply(lp["attn"], h, cfg, positions,
-                                        causal=False)
-                h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-                x = x + ffn.mlp_apply(lp["mlp"], h, cfg)
+                x = self._layer_call(self._enc_block, _layer(p["encoder"], i),
+                                     x, positions)
             return rms_norm(x, p["enc_norm"], cfg.norm_eps)
 
-    @torch.inference_mode()
+    def _enc_block(self, lp, x: torch.Tensor, positions) -> torch.Tensor:
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attn.attn_apply(lp["attn"], h, cfg, positions, causal=False)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + ffn.mlp_apply(lp["mlp"], h, cfg)
+
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames [B, F, d] (precomputed conv-frontend embeddings) ->
-        memory [B, F, d] in the frames' dtype."""
+        memory [B, F, d] in the frames' dtype (under the caller's grad
+        mode)."""
         return self._encode(self.params.tree(), frames)
 
     # -- cross attention -------------------------------------------------
@@ -167,12 +172,12 @@ class WhisperModel(LanguageModel):
         return self._unembed(p, x, tied=True)
 
     # -- decoder forward (teacher forcing) -------------------------------
-    @torch.inference_mode()
     def forward(self, tokens: torch.Tensor,
                 frames: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S], frames [B, F, d] -> float32 logits [B, S, V]: the
-        encoder over `frames`, then the decoder over `tokens`."""
+        encoder over `frames`, then the decoder over `tokens` (under the
+        caller's grad mode)."""
         if frames is None:
             raise ValueError("whisper needs encoder frames")
         p = self.params.tree()
@@ -183,8 +188,8 @@ class WhisperModel(LanguageModel):
         x = embed_lookup(p["embedding"], tokens)
         x = x + _sinusoid(s, self.cfg.d_model, x.dtype, x.device)[None]
         for i in range(self.cfg.num_layers):
-            x = self._dec_block(_layer(p["decoder"], i), x, memory,
-                                positions)
+            x = self._layer_call(self._dec_block, _layer(p["decoder"], i), x,
+                                 memory, positions)
         return self._logits(p, x)
 
     # -- decode ----------------------------------------------------------

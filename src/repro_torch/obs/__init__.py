@@ -7,7 +7,7 @@ A copy of the JAX package's ``repro.obs``: the recorder, with
 repro_torch.obs.report``).
 """
 
-from .profiler import named_scope
+from .profiler import named_scope, trace_annotation
 from .record import (
     NullRecorder,
     Recorder,
@@ -27,4 +27,5 @@ __all__ = [
     "named_scope",
     "recording",
     "set_recorder",
+    "trace_annotation",
 ]

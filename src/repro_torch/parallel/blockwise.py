@@ -36,6 +36,7 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.profiler import trace_annotation
 from ..obs.record import get_recorder
 
 __all__ = [
@@ -160,14 +161,18 @@ def _run_sharded(items: np.ndarray, plan: BlockPlan,
                  device_fn: Callable) -> Iterator[Tuple[np.ndarray, tuple]]:
     """`device_fn` on each block in turn; the block's ids go to the device
     as an int64 tensor and its outputs come back as numpy arrays (one
-    device-to-host copy per output, which is the block's one host sync).
-    No padding: PyTorch runs any block width without recompiling."""
+    device-to-host copy per output, which is the block's one host sync),
+    the round labelled "blockwise.round" in a ``torch.profiler`` capture
+    (`obs.trace_annotation`, as the reference labels its rounds).  No
+    padding: PyTorch runs any block width without recompiling."""
     for i in range(plan.num_blocks):
         lo, hi = plan.bounds(i)
         blk = items[lo:hi]
-        outs = device_fn(torch.from_numpy(np.ascontiguousarray(blk,
-                                                               np.int64)))
-        yield blk, tuple(o.cpu().numpy() for o in _as_tuple(outs))
+        with trace_annotation("blockwise.round"):
+            outs = device_fn(torch.from_numpy(np.ascontiguousarray(
+                blk, np.int64)))
+            outs = tuple(o.cpu().numpy() for o in _as_tuple(outs))
+        yield blk, outs
 
 
 def run_blocks(items: Sequence, plan: BlockPlan, host_fn: Callable,

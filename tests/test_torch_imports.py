@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 62 else 0)
+sys.exit(1 if bad or missing or len(names) < 71 else 0)
 """ % (sorted([
     # the analysis slice: the §IX APSP and §IV-D routing-table entry
     # points, their kernels' wrappers, the structural metrics and the
@@ -69,6 +69,16 @@ sys.exit(1 if bad or missing or len(names) < 62 else 0)
     # the SSM / encoder-decoder slice
     "repro_torch.models.mamba",
     "repro_torch.models.whisper",
+    # the training slice: train/ and its CLI
+    "repro_torch.train",
+    "repro_torch.train.checkpoint",
+    "repro_torch.train.compress",
+    "repro_torch.train.data",
+    "repro_torch.train.elastic",
+    "repro_torch.train.losses",
+    "repro_torch.train.optimizer",
+    "repro_torch.train.train_step",
+    "repro_torch.launch.train",
 ]),)
 
 
