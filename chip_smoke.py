@@ -17,13 +17,15 @@ routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
 Griffin hybrid (recurrentgemma-9b), the SSM (falcon-mamba-7b) and the
 encoder-decoder (whisper-base), each at its full published width, and
 the training path (qwen2-0.5b at its full width, through the
-flash-attention backward kernel).  Each path's kernel counts are set to
+tensor-core flash-attention backward kernel).  Each path's kernel counts are set to
 0 just before it and read just after.  Phases, one JSON line each
 (``python3 chip_smoke.py train`` runs the named phases alone, a
 development run that then fails for the kernels it did not launch):
 
   device     the card's name and power limit
-  build      the nvcc build and its seconds
+  build      the nvcc build and its seconds, ptxas's register and spill
+             report, and `cuobjdump -sass`'s HGMMA count of each
+             tensor-core kernel (the build fails without one)
   kernels    each kernel against its plain version (the first four bit
              for bit, tolerance 0), at the test shapes, at one shape per
              route its launch plan can choose, and at the paths' shapes:
@@ -159,30 +161,38 @@ development run that then fails for the kernels it did not launch):
              decode step; float32 of the whole model (12 CUDA-core
              launches) on 1500 frames
   train      the training path (`train.make_train_step`, as
-             `launch.train --preset full --data fixed` builds it): the
-             flash-attention backward kernel (csrc/flash_attention_bwd.cu,
-             through the autograd Function around both forward kernels)
-             against its plain version (autograd through `attention_ref`)
-             at FLASH_CASES in both dtypes, at a qwen2-0.5b train layer
-             (B = 4, 14/2 heads, S = 2048, D = 64, causal; bf16 and fp32),
+             `launch.train --preset full --data fixed` builds it): both
+             flash-attention backward kernels (through the autograd
+             Function around both forward kernels: the tensor-core
+             csrc/flash_attention_bwd_sm90.cu for bf16 at D = 64 and
+             128, fed the sm90 forward's logsumexp, the CUDA-core
+             csrc/flash_attention_bwd.cu for the rest) against their
+             plain version (autograd through `attention_ref`) at
+             FLASH_CASES in both dtypes, at a qwen2-0.5b train layer (B =
+             4, 14/2 heads, S = 2048, D = 64, causal; bf16 and fp32),
              Gemma2-9B's local layer (16/8 heads, D = 256, softcap 50,
              window 4096, S = 4096; fp32) and whisper-base's encoder (8/8
-             heads, D = 64, non-causal, S = 1500; fp32), each gradient
-             within FLASH_BWD_TOL of its largest magnitude, with the
-             kernel's, the plain version's and SDPA's backward times
-             (CUDA events, median of 10) beside the bound (10 D flops a
+             heads, D = 64, non-causal, S = 1500; bf16 and fp32), each
+             gradient within FLASH_BWD_TOL of its largest magnitude, with
+             the routed kernel's time (CUDA events, median of 10; the
+             tensor-core one given the forward's lse, its forward left
+             out), the
+             CUDA-core kernel's on the same bf16 inputs, the plain
+             version's and SDPA's backward beside the bound (10 D flops a
              pair and head at the bf16 tensor-core rate); then
              qwen2-0.5b at its published widths (24 layers, d_model 896,
              14/2 heads of 64, d_ff 4864, vocab 151,936, tied), bf16,
              remat "full", AdamW(cosine_schedule(1e-3, 10, 11),
              weight_decay 0), one fixed batch of B = 4, S = 2048, 11 steps
              (the first a warm-up): per step the loss, grad norm and wall
-             ms, 48 sm90 and 24 backward launches a step, the loss finite
+             ms, 48 sm90 and 24 tensor-core backward launches (0
+             CUDA-core) a step, the loss finite
              and falling by at least 0.5, tokens/s, peak memory, a
              torch.profiler breakdown of one more step (the backward
              kernel's share) and its forward / backward / optimizer
              split; float32 without remat (B = 2, S = 512, 3 steps: 24
-             CUDA-core and 24 backward launches a step, finite and
+             CUDA-core forward and 24 CUDA-core backward launches a
+             step, finite and
              falling); one float32 step at full width and 2 layers (B =
              2, S = 128, TF32 off) on the card against the CPU (loss
              within 1e-5 relative, grad norm 1e-4, every gradient leaf
@@ -220,8 +230,9 @@ bf16 prefill's (the MoE, hybrid, SSM and encoder-decoder prefills' in
 `launches_by_path`, its times at their shapes in `other_path_shapes`),
 the CUDA-core kernel's those of the Gemma2-9B float32 consistency run
 (whisper-base's and the float32 train run's in `launches_by_path`), the
-backward kernel's those of the bf16 train run (11 steps; the float32
-run's in `launches_by_path`), its times the qwen2-0.5b train layer's.
+tensor-core backward's those of the bf16 train run (11 steps), the
+CUDA-core backward's those of the float32 train run (3 steps), both
+backwards' times the qwen2-0.5b bf16 train layer's.
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -412,11 +423,36 @@ def kernel_name(mangled):
     return names[-1] + mangled[i:].split("Ev")[0].rstrip("E")[:24]
 
 
+# the tensor-core kernels, whose SASS must hold wgmma (HGMMA) instructions
+HGMMA_KERNELS = ("flash_attention_sm90_kernel", "bwd_sm90_dq_kernel",
+                 "bwd_sm90_dkdv_kernel")
+
+
+def sass_hgmma(lib):
+    """{kernel name: HGMMA instructions in its SASS} for the functions of
+    the shared library `lib` whose names hold one of HGMMA_KERNELS
+    (`cuobjdump -sass`)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass failed: {out.stderr[-400:]}")
+    counts = {}
+    for part in out.stdout.split("Function : ")[1:]:
+        name = kernel_name(part.split(None, 1)[0])
+        if any(k in name for k in HGMMA_KERNELS):
+            counts[name] = part.count("HGMMA")
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
     _build.build_all()
-    ptxas = {}
+    ptxas, spills = {}, []
     for name, log in _build.build_logs().items():
         rows, kernel = [], ""
         for ln in log.splitlines():
@@ -424,10 +460,18 @@ def phase_build():
                 kernel = kernel_name(ln.split("'")[1])
             elif "registers" in ln or "spill" in ln:
                 rows.append(f"{kernel}: {ln.strip()}")
+                if "spill" in ln and " 0 bytes spill stores" not in ln:
+                    spills.append(rows[-1])
             elif "C7512" in ln:  # wgmma serialised for want of registers
                 rows.append(ln.strip())
         ptxas[name] = rows
-    return {"libraries": sorted(_build.LIBRARIES), "ptxas": ptxas}
+    hgmma = sass_hgmma(_build._target("flash_attention")[0])
+    missing = [k for k in HGMMA_KERNELS
+               if not any(k in name and n > 0 for name, n in hgmma.items())]
+    if missing:
+        raise AssertionError(f"no HGMMA in the SASS of {missing}: {hgmma}")
+    return {"libraries": sorted(_build.LIBRARIES), "ptxas": ptxas,
+            "spills": spills, "sass_hgmma": hgmma}
 
 
 def main_path_inputs(torch):
@@ -1812,7 +1856,8 @@ def device_time_by_kernel(torch, fn, scopes=()):
                             or "flash_attention_sm90_kernel" in r[0]),
             "flash_bwd_ms": sum(r[1] for r in rows
                                 if "bwd_dq_kernel" in r[0]
-                                or "bwd_dkdv_kernel" in r[0]),
+                                or "bwd_dkdv_kernel" in r[0]
+                                or "bwd_sm90_" in r[0]),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                     for k, ms, n in rows[:6]]}
 
@@ -1966,7 +2011,7 @@ def _drive_lm(torch, arch, seq):
         "logits_abs_max": float(logits.abs().max()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_ok": check(by_kernel == {"sm90": n_attn, "simt": 0,
-                                           "bwd": 0},
+                                           "bwd": 0, "bwd_sm90": 0},
                              f"flash launches {by_kernel} for {n_attn} "
                              f"bf16 attention layers")}
     del logits
@@ -2074,7 +2119,8 @@ def _drive_lm(torch, arch, seq):
         if cfg.family == "moe" else None,
         "forward_flash_launches": fwd_launches,
         "launches_ok": check(fwd_launches == {
-            "sm90": 0, "simt": attention_layers(cfg_c), "bwd": 0},
+            "sm90": 0, "simt": attention_layers(cfg_c), "bwd": 0,
+            "bwd_sm90": 0},
             f"fp32 flash launches {fwd_launches}"),
         "decode_vs_forward_max_abs_err": dec_err,
         "decode_vs_forward_ok": check(dec_ok, "fp32 decode vs forward"),
@@ -2152,8 +2198,8 @@ def flash_bwd_bound_ms(b, hq, hkv, s, d, causal, window, itemsize):
 
 def train_attention_shapes():
     """[(label, (B, Hq, Hkv, S, D, causal, softcap, window), dtypes)] where
-    the backward kernel is held and timed: one qwen2-0.5b train layer (B =
-    4, S = 2048), Gemma2-9B's local layer at S = 4096 (softcap, window,
+    the backward kernels are held and timed: one qwen2-0.5b train layer (B
+    = 4, S = 2048), Gemma2-9B's local layer at S = 4096 (softcap, window,
     D = 256) and whisper-base's encoder (non-causal, the ragged S = 1500)."""
     from repro_torch.configs import get_config
 
@@ -2166,18 +2212,20 @@ def train_attention_shapes():
                               g.local_window), ("float32",)),
             ("whisper_encoder", (1, w.num_heads, w.num_kv_heads,
                                  w.encoder_frames, w.head_dim, False, None,
-                                 None), ("float32",))]
+                                 None), ("bfloat16", "float32"))]
 
 
 def kernel_flash_bwd(torch, state):
-    """The backward kernel (csrc/flash_attention_bwd.cu) through autograd
-    (`ops.attention` on leaves that require grad) against its plain
-    version (`attention_backward_ref`: autograd through `attention_ref`)
-    on the card, each gradient within FLASH_BWD_TOL of its largest
-    magnitude: at FLASH_CASES in both dtypes and at
-    `train_attention_shapes`; then the kernel's, the plain version's and
-    (where it computes the same function) SDPA's backward times beside
-    the bound at those shapes."""
+    """Both backward kernels through autograd (`ops.attention` on leaves
+    that require grad: csrc/flash_attention_bwd_sm90.cu for bf16 at D = 64
+    and 128, csrc/flash_attention_bwd.cu for the rest) against their plain
+    version (`attention_backward_ref`: autograd through `attention_ref`) on
+    the card, each gradient within FLASH_BWD_TOL of its largest magnitude:
+    at FLASH_CASES in both dtypes and at `train_attention_shapes`; then,
+    at those shapes, the routed kernel's time (in bf16 at D = 64 and 128
+    the tensor-core one, fed the forward's lse) beside the CUDA-core
+    kernel's on the same bf16 inputs, the plain version's and (where it
+    computes the same function) SDPA's backward, and the bound."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -2185,7 +2233,7 @@ def kernel_flash_bwd(torch, state):
     from repro_torch.kernels.flash_attention.ref import attention_backward_ref
 
     rows, times = [], {}
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"bwd": {"float32": 0.0, "bfloat16": 0.0}, "bwd_sm90": 0.0}
 
     def inputs(shape, dtype, seed):
         b, hq, hkv, s, d = shape[:5]
@@ -2198,16 +2246,19 @@ def kernel_flash_bwd(torch, state):
 
     def hold(label, x, causal, cap, win):
         """Gradients through the autograd Function against the plain
-        backward; returns the forward's output (for the timings)."""
+        backward."""
         q, k, v, do = x
+        route = ops._bwd_route(q.dtype, q.shape[3])
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        before = ops.LAUNCHES_BY_KERNEL[route]
         out = ops.attention(*leaves, causal=causal, softcap=cap, window=win)
         got = torch.autograd.grad(out, leaves, do)
         want = attention_backward_ref(q, k, v, do, causal=causal,
                                       softcap=cap, window=win)
         torch.cuda.synchronize()
         name = str(q.dtype).split(".")[-1]
-        row, ok = {"case": label, "dtype": name}, True
+        row = {"case": label, "dtype": name, "route": route}
+        ok = ops.LAUNCHES_BY_KERNEL[route] == before + 1
         for grad, g, w in zip(("dq", "dk", "dv"), got, want):
             g, w = g.float(), w.float()
             err, top = float((g - w).abs().max()), float(w.abs().max())
@@ -2215,25 +2266,37 @@ def kernel_flash_bwd(torch, state):
             row[grad] = {"max_abs_err": err, "max_abs_ref": top,
                          "share_of_bar": err / bar}
             ok = ok and bool(torch.isfinite(g).all()) and err <= bar
-            worst[name] = max(worst[name], err)
+            if route == "bwd":
+                worst[route][name] = max(worst[route][name], err)
+            else:
+                worst[route] = max(worst[route], err)
         row["ok"] = ok
         rows.append(row)
         if not ok:
             raise AssertionError(f"flash_attention backward differs from "
                                  f"its plain version: {row}")
-        return out.detach()
 
-    def timed(x, o, causal, cap, win):
+    def timed(x, causal, cap, win):
+        """Times at one shape: the routed backward (the tensor-core one fed
+        the forward's lse where it takes the shape), the CUDA-core one on
+        the same bf16 inputs beside it, the plain version and SDPA."""
         q, k, v, do = x
         b, hq, s, d = q.shape
         hkv = k.shape[1]
+        route = ops._bwd_route(q.dtype, d)
+        if route == "bwd_sm90":
+            o, lse = ops._launch(q, k, v, causal, cap, win, None, "sm90",
+                                 with_lse=True)
+        else:
+            o, lse = ops._launch(q, k, v, causal, cap, win, None,
+                                 ops._route(q.dtype, d)), None
         bound, by_ops, by_bytes = flash_bwd_bound_ms(
             b, hq, hkv, s, d, causal, win, q.element_size())
-        ms = gpu_ms(torch, lambda: ops._launch_bwd(q, k, v, o, do, causal,
-                                                   cap, win, None),
-                    samples=10)
+        kernel = lambda r, l: (lambda: ops._launch_bwd(  # noqa: E731
+            q, k, v, o, do, causal, cap, win, None, lse=l, route=r))
+        ms = gpu_ms(torch, kernel(route, lse), samples=10)
         row = {"shape": [b, hq, hkv, s, d], "causal": causal,
-               "softcap": cap, "window": win, "ms": ms,
+               "softcap": cap, "window": win, "route": route, "ms": ms,
                "plain_ms": gpu_ms(torch, lambda: attention_backward_ref(
                    q, k, v, do, causal=causal, softcap=cap, window=win),
                    samples=3, warmup=1),
@@ -2244,6 +2307,9 @@ def kernel_flash_bwd(torch, state):
                "bound_share": bound / ms, "library_ms": None,
                "library_reason": "scaled_dot_product_attention has no "
                                  "softcap and takes a window only as a mask"}
+        if route == "bwd_sm90":
+            row["bwd_ms"] = gpu_ms(torch, kernel("bwd", None), samples=10)
+            row["speedup_over_bwd"] = row["bwd_ms"] / ms
         if cap is None and win is None:
             row["library_reason"] = (
                 f"the same function: the backward of scaled_dot_product_"
@@ -2256,8 +2322,7 @@ def kernel_flash_bwd(torch, state):
                     sdpa, leaves, do, retain_graph=True)
                 row["library_ms"] = gpu_ms(torch, lib, samples=10)
                 row["library_dq_max_abs_err"] = float(
-                    (lib()[0].float() - ops._launch_bwd(
-                        q, k, v, o, do, causal, None, None, None)[0].float()
+                    (lib()[0].float() - kernel(route, lse)()[0].float()
                      ).abs().max())
             except RuntimeError:  # noqa: BLE001 -- SDPA's own refusal
                 row["library_error"] = traceback.format_exc(limit=1)
@@ -2273,36 +2338,58 @@ def kernel_flash_bwd(torch, state):
             x = inputs(shape, getattr(torch, dname), 5)
             full = f"{label} {(b, hq, hkv, s, d)} causal {causal} " \
                    f"softcap {cap} window {win}"
-            o = hold(full, x, causal, cap, win)
+            hold(full, x, causal, cap, win)
             times[f"{label}_{dname}"] = {"dtype": dname,
-                                         **timed(x, o, causal, cap, win)}
-            del x, o
+                                         **timed(x, causal, cap, win)}
+            del x
             torch.cuda.empty_cache()
     main = times["qwen2_train_bfloat16"]
-    state["flash_attention_bwd"] = {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/ref.py:13 (no Pallas "
-                    "counterpart: the reference differentiates attention_ref "
-                    "by XLA autodiff)",
-        "max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    replaces = ("src/repro/kernels/flash_attention/ref.py:13 (no Pallas "
+                "counterpart: the reference differentiates attention_ref by "
+                "XLA autodiff)")
+    at = "one qwen2-0.5b train layer (B 4, 14/2 heads, S 2048, D 64, " \
+         "causal), bf16"
+    def shapes(route):
+        """The kernel of `route`'s time at the other shapes: where it is
+        the routed kernel, and (CUDA-core) beside the tensor-core one."""
+        key = {"bwd_sm90": "ms", "bwd": "bwd_ms"}[route]
+        return {k: {"shape": v["shape"], "dtype": v["dtype"],
+                    "ms": v[key] if key in v else v["ms"],
+                    **{f: v[f] for f in ("plain_ms", "bound_ms",
+                                         "library_ms")}}
+                for k, v in times.items() if k != "qwen2_train_bfloat16"
+                and (v["route"] == route or key in v)}
+
+    state["flash_attention_bwd_sm90"] = {
+        "name": "flash_attention_bwd_sm90", "route": "cuda",
+        "source": src + "flash_attention_bwd_sm90.cu", "replaces": replaces,
+        "max_abs_err": worst["bwd_sm90"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "library_computes": main["library_reason"],
-        "timed_at": "one qwen2-0.5b train layer (B 4, 14/2 heads, S 2048, "
-                    "D 64, causal), bf16",
-        "other_shapes": {k: {key: v[key] for key in (
-            "shape", "dtype", "ms", "plain_ms", "bound_ms", "library_ms")}
-            for k, v in times.items() if k != "qwen2_train_bfloat16"}}
+        "timed_at": at, "speedup_over_bwd": main["speedup_over_bwd"],
+        "other_shapes": shapes("bwd_sm90")}
+    state["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": src + "flash_attention_bwd.cu", "replaces": replaces,
+        "max_abs_err": max(worst["bwd"].values()),
+        "max_abs_err_by_dtype": worst["bwd"],
+        "ms": main["bwd_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_computes": main["library_reason"],
+        "timed_at": at + " (the inputs the tensor-core kernel is timed on; "
+                         "the train path sends it float32)",
+        "other_shapes": shapes("bwd")}
     return {"checks": rows, "max_abs_err": worst, "times": times,
             "tol_of_max": FLASH_BWD_TOL, "atol": FLASH_BWD_ATOL}
 
 
 def reset_flash_counts(ops):
     ops.LAUNCHES = 0
-    ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0, bwd=0)
+    ops.LAUNCHES_BY_KERNEL.update(sm90=0, simt=0, bwd=0, bwd_sm90=0)
 
 
 def run_steps(torch, step_fn, st, pipe, steps, label, ops):
@@ -2353,14 +2440,14 @@ def step_split_ms(torch, model, opt, st, batch):
 
 def phase_train(torch, state):
     """The training path (`train.make_train_step` as `launch.train` builds
-    it): the backward kernel's holds and times (`kernel_flash_bwd`);
+    it): the backward kernels' holds and times (`kernel_flash_bwd`);
     qwen2-0.5b at its published widths in bf16 with remat, TRAIN["steps"]
     steps on one fixed batch (`--data fixed`: the markov generator's V x V
     matrix would take 185 GB at this vocabulary) -- the loss finite and
-    falling by at least 0.5, 2 sm90 launches and 1 backward launch a layer
-    and step, tokens/s, peak memory, a profile and a split of one more
-    step; the same model in float32 without remat (the CUDA-core forward
-    and the backward kernel in float32); one float32 step at full width
+    falling by at least 0.5, 2 sm90 launches and 1 tensor-core backward
+    launch a layer and step, tokens/s, peak memory, a profile and a split
+    of one more step; the same model in float32 without remat (the
+    CUDA-core forward and backward); one float32 step at full width
     and 2 layers on the card against the same on the CPU; and a restart
     from a checkpoint, bit for bit."""
     import shutil
@@ -2414,7 +2501,7 @@ def phase_train(torch, state):
     losses = [r["loss"] for r in rows]
     walls = sorted(r["wall_ms"] for r in rows[1:])  # step 0 warms up
     step_ms = walls[len(walls) // 2]
-    per_step = {"sm90": 2 * n, "simt": 0, "bwd": n}
+    per_step = {"sm90": 2 * n, "simt": 0, "bwd": 0, "bwd_sm90": n}
     batch = pipe.batch_at(0)
     prof = device_time_by_kernel(torch, lambda: step_fn(st, batch),
                                  ("train.",))
@@ -2442,9 +2529,9 @@ def phase_train(torch, state):
         "backward_kernel_share": prof.get("flash_bwd_ms", 0.0)
         / prof["device_ms"] if prof.get("device_ms") else None,
         "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}
-    state["flash_bwd_launches"] = launches["bwd"]
-    state["flash_bwd_launches_by_path"] = {"qwen2-0.5b train bf16":
-                                           launches["bwd"]}
+    state["flash_bwd_sm90_launches"] = launches["bwd_sm90"]
+    state["flash_bwd_sm90_launches_by_path"] = {"qwen2-0.5b train bf16":
+                                                launches["bwd_sm90"]}
     state.setdefault("flash_sm90_launches_by_path", {})[
         "qwen2-0.5b train bf16"] = launches["sm90"]
     del model, st, step_fn, pipe, batch
@@ -2470,10 +2557,12 @@ def phase_train(torch, state):
         "loss_ok": check(all(np.isfinite(losses)) and losses[-1] < losses[0],
                          f"fp32 losses {losses}"),
         "launches_ok": check(launches32 == {"sm90": 0, "simt": n * f["steps"],
-                                            "bwd": n * f["steps"]},
+                                            "bwd": n * f["steps"],
+                                            "bwd_sm90": 0},
                              f"fp32 flash launches {launches32}")}
-    state["flash_bwd_launches_by_path"]["qwen2-0.5b train fp32"] = \
-        launches32["bwd"]
+    state["flash_bwd_launches"] = launches32["bwd"]
+    state["flash_bwd_launches_by_path"] = {"qwen2-0.5b train fp32":
+                                           launches32["bwd"]}
     state.setdefault("flash_simt_launches_by_path", {})[
         "qwen2-0.5b train fp32"] = launches32["simt"]
     del model, st, pipe
@@ -2523,7 +2612,8 @@ def phase_train(torch, state):
         "attention_grads_nonzero": check(not zero_attn,
                                          f"zero attention grads {zero_attn}"),
         "launches_ok": check(check_launches == {
-            "sm90": 0, "simt": 2 * c["layers"], "bwd": c["layers"]},
+            "sm90": 0, "simt": 2 * c["layers"], "bwd": c["layers"],
+            "bwd_sm90": 0},
             f"card-vs-CPU flash launches {check_launches}")}
     del cpu, grads_c, grads_g
 
@@ -2607,7 +2697,9 @@ def main():
                 "gf_crossprod": state.get("gf_launches", 0),
                 "flash_attention": state.get("flash_simt_launches", 0),
                 "flash_attention_sm90": state.get("flash_sm90_launches", 0),
-                "flash_attention_bwd": state.get("flash_bwd_launches", 0)}
+                "flash_attention_bwd": state.get("flash_bwd_launches", 0),
+                "flash_attention_bwd_sm90": state.get(
+                    "flash_bwd_sm90_launches", 0)}
     kernels = [{**state[name], "launches": launches[name]}
                for name in launches if name in state]
     for k in kernels:
@@ -2625,8 +2717,13 @@ def main():
                 GEMMA: k["launches"],
                 **state.get("flash_simt_launches_by_path", {})}
         if k["name"] == "flash_attention_bwd":
-            # `launches` is the bf16 train run's; the float32 one's beside
+            # `launches` is the float32 train run's (bf16 takes the
+            # tensor-core backward at qwen2's D = 64)
             k["launches_by_path"] = state.get("flash_bwd_launches_by_path")
+        if k["name"] == "flash_attention_bwd_sm90":
+            # `launches` is the bf16 train run's
+            k["launches_by_path"] = state.get(
+                "flash_bwd_sm90_launches_by_path")
         if k["name"] == "path_costs":
             # the main path's count is `launches`; the certified path's
             # beside it

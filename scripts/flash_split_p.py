@@ -56,7 +56,7 @@ def build():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         fn = ctypes.CDLL(lib).flash_attention_bf16_sm90
-        fn.argtypes = ops._ARGTYPES
+        fn.argtypes = ops._ARGTYPES["sm90"]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -65,8 +65,8 @@ def build():
 def launch(fn, q, k, v, softcap, window):
     out = torch.empty_like(q)
     b, hq, s, d = q.shape
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-             k.shape[1], s, d, 1, softcap, window or 0, d ** -0.5,
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+             b, hq, k.shape[1], s, d, 1, softcap, window or 0, d ** -0.5,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")

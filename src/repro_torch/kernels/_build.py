@@ -13,8 +13,9 @@ then linked into one shared library:
 This takes seconds; PyTorch's own extension builder, whose sources include
 PyTorch's headers, takes minutes.  Libraries are built at first use into
 ``build/kernels/`` under the repository root, keyed by a hash of their
-sources and flags, so a fresh checkout builds everything itself and an
-edited source is rebuilt.  `build_all` starts one nvcc per source of every
+sources, of every header (``*.cuh``) in their ``csrc/`` directories and of
+the flags, so a fresh checkout builds everything itself and an edited
+source or header is rebuilt.  `build_all` starts one nvcc per source of every
 library, all at once.  A failed build raises with nvcc's stderr.
 
 Nothing here runs when the module is imported: the CPU tests import every
@@ -43,7 +44,8 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "gf_crossprod": ("gf_crossprod/csrc/crossprod.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",
                         "flash_attention/csrc/flash_attention_sm90.cu",
-                        "flash_attention/csrc/flash_attention_bwd.cu"),
+                        "flash_attention/csrc/flash_attention_bwd.cu",
+                        "flash_attention/csrc/flash_attention_bwd_sm90.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,11 +65,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Tuple[Path, List[Path]]:
+    """The library's file, named by a hash of its flags, its sources and
+    the headers beside them (which the sources include), and its sources."""
     sources = [_KERNELS / s for s in LIBRARIES[name]]
+    headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in sources + headers:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so", sources
 
 

@@ -93,28 +93,32 @@
 //     softmax under the other's); one consumer warpgroup beside a producer
 //     warpgroup (setmaxnreg 24 / 240).
 //
-// A wait on an mbarrier that has not completed after 4 s traps (a
-// "unspecified launch failure" the wrapper reports) instead of hanging.
+// Logsumexp: with a non-null `lse` the epilogue also writes each row's
+// logsumexp, m + log2(l) in the kernel's log2 units, for the backward
+// (flash_attention_bwd_sm90.cu), which then need not recompute it.  Every
+// inference call passes null; the output is the same bits either way.
+//
+// The mbarrier, TMA, descriptor and wgmma wrappers are sm90.cuh's, shared
+// with the backward.  A wait on an mbarrier that has not completed after
+// 4 s traps (a "unspecified launch failure" the wrapper reports) instead
+// of hanging.
 //
 // Launches are counted by the Python wrapper (ops.py).  Built by
 // repro_torch/kernels/_build.py with nvcc (sm_90a) into the
 // "flash_attention" library with a plain C interface; the launcher returns
 // cudaGetLastError().  No --use_fast_math.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kBQ = 128;     // q rows a block: two warpgroups of 64
 constexpr int kBK = 64;      // keys a kv tile
 constexpr int kStages = 2;   // K and V tiles in flight
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned long long kHangNs = 4000000000ull;
 
 // mbarriers: Q full, then per stage K full, V full, K empty, V empty
 constexpr int kQFull = 0, kKFull = 1, kVFull = 1 + kStages,
@@ -135,317 +139,6 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// wait for the completion of the phase of parity `parity`; trap after
-// kHangNs rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const unsigned long long t0 = globaltimer();
-  while (!mbar_try(bar, parity))
-    if (globaltimer() - t0 > kHangNs) __trap();
-}
-
-// one TMA box {64 columns, rows, 1} at (c0, c1, c2) into shared memory at
-// dst, completing `bar`'s transaction count
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptors, 128-byte swizzle (layout type 1, bits
-// 62-63), start address >> 4 in bits 0-13, leading byte offset >> 4 in bits
-// 16-29, stride byte offset >> 4 in bits 32-45.  Both operand layouts here
-// are TMA's: rows of 128 bytes (64 bf16), 8-row groups 1024 bytes apart.
-// K-major (Q and K: the reduction runs along the row): the stride byte
-// offset is the 8-row group's 1024 bytes; the leading one is unused (1); a
-// 16-wide k-step inside the row advances the start by 32 bytes.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(1) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-// MN-major (V: the reduction runs over keys, down the rows): the leading
-// byte offset is the distance between 64-column chunks (`chunk` bytes), the
-// stride byte offset that between 8-key groups (1024 bytes)
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
-                                                 uint32_t chunk) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(chunk >> 4) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until this warpgroup's committed wgmma groups are done
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from touching registers a wgmma in flight reads or
-// writes across the wait: they pass through an empty asm after it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// `x`, which the compiler may no longer assume equal to an earlier value:
-// descriptors derived from it are rebuilt where they are used, instead of
-// being hoisted out of the kv loop into (many) registers
-__device__ __forceinline__ uint64_t opaque(uint64_t x) {
-  asm volatile("" : "+l"(x));
-  return x;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in bits 0-15
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d = A B (scale_d = 0) or d += A B, A [64 x 16] and B [16 x 64] bf16 in
-// shared memory, both K-major (descriptors da, db)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d += A B, A [64 x 16] bf16 in registers (a: the m64k16 fragment), B
-// [16 x 64] bf16 in shared memory, MN-major (descriptor db, transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B, A [64 x 16] bf16 in registers (a: the m64k16 fragment), B
-// [16 x 128] bf16 in shared memory, MN-major (descriptor db, transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B, A [64 x 16] bf16 in registers (a: the m64k16 fragment), B
-// [16 x 192] bf16 in shared memory, MN-major (descriptor db, transposed)
-__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95}, "
-      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B, A [64 x 16] bf16 in registers (a: the m64k16 fragment), B
-// [16 x 256] bf16 in shared memory, MN-major (descriptor db, transposed)
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
-  else if constexpr (D == 192) wgmma_rs_n192(d, a, db);
-  else wgmma_rs_n256(d, a, db);
-}
 
 // S = Q K^T of one kv tile: D / 16 k-steps; dq, dk the descriptors of the
 // warpgroup's Q rows and of the K tile (chunk ks / 4, 16 columns = 32 bytes
@@ -546,7 +239,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            __nv_bfloat16* __restrict__ o, int hq, int hkv,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int hq, int hkv,
                             int nbh, int s, int causal, int window,
                             int capped, float zs, float zc) {
   using L = Layout<D>;
@@ -688,6 +382,17 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(x) : "f"(den));
     inv[r] = fmaf(x, fmaf(-den, x, 1.f), x);
   }
+  // the rows' logsumexp for the backward, in the kernel's log2 units:
+  // lse[row] = m + log2(l) = log2 sum_j 2^z[j] = (natural logsumexp of the
+  // scores) * log2(e); one thread of the quad writes, rows past S not
+  // stored.  Every row below S keeps a key, so l > 0 there
+  if (lse != nullptr && (tid & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < s) lse[(long long)bh * s + row] = m[r] + log2f(l[r]);
+    }
+  }
   __nv_bfloat16* oh = o + (long long)bh * s * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -703,48 +408,6 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side ----
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a [heads, s, d] bf16 tensor, boxes of 64 columns x `rows` rows, 128-byte
-// swizzle, out-of-bounds rows read as zeros
-bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
-                int s, int heads, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D>
 constexpr int smem_bytes() {
@@ -753,9 +416,16 @@ constexpr int smem_bytes() {
 
 template <int D>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-           const __nv_bfloat16* v, __nv_bfloat16* o, int b, int hq, int hkv,
-           int s, int causal, float softcap, int window, float scale,
-           cudaStream_t stream) {
+           const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int b,
+           int hq, int hkv, int s, int causal, float softcap, int window,
+           float scale, cudaStream_t stream) {
+  // a runtime call first: it makes the device's context current on this
+  // thread (autograd may run a recomputed forward on a thread of its own),
+  // which cuTensorMapEncodeTiled (libcuda, below) needs
+  auto kernel = flash_attention_sm90_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  if (err != cudaSuccess) return (int)err;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -763,10 +433,6 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
       !tensor_map(encode, &tk, k, D, s, b * hkv, kBK) ||
       !tensor_map(encode, &tv, v, D, s, b * hkv, kBK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_attention_sm90_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
-  if (err != cudaSuccess) return (int)err;
   // scores in log2 units: z = zs (q . k), or zc tanh(zs (q . k)) with the
   // softcap
   const int capped = softcap > 0.f;
@@ -775,7 +441,7 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const int nbh = b * hq;
   const int blocks = (s + kBQ - 1) / kBQ * nbh;
   kernel<<<blocks, kThreads, smem_bytes<D>(), stream>>>(
-      tq, tk, tv, o, hq, hkv, nbh, s, causal, window, capped, zs, zc);
+      tq, tk, tv, o, lse, hq, hkv, nbh, s, causal, window, capped, zs, zc);
   return (int)cudaGetLastError();
 }
 
@@ -794,23 +460,25 @@ long long flash_attention_sm90_smem_bytes(int d) {
   }
 }
 
-// softcap <= 0 means none, window <= 0 means none
+// softcap <= 0 means none, window <= 0 means none; lse: null, or [B, Hq, S]
+// float32 that receives each row's logsumexp in log2 units (the backward's
+// input); the output's bits do not depend on it
 int flash_attention_bf16_sm90(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                              const __nv_bfloat16* v, __nv_bfloat16* o, int b,
-                              int hq, int hkv, int s, int d, int causal,
-                              float softcap, int window, float scale,
-                              cudaStream_t stream) {
+                              const __nv_bfloat16* v, __nv_bfloat16* o,
+                              float* lse, int b, int hq, int hkv, int s,
+                              int d, int causal, float softcap, int window,
+                              float scale, cudaStream_t stream) {
   if (b <= 0 || s <= 0) return (int)cudaSuccess;
   if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 64: return launch<64>(q, k, v, o, b, hq, hkv, s, causal, softcap,
-                               window, scale, stream);
-    case 128: return launch<128>(q, k, v, o, b, hq, hkv, s, causal, softcap,
-                                 window, scale, stream);
-    case 192: return launch<192>(q, k, v, o, b, hq, hkv, s, causal, softcap,
-                                 window, scale, stream);
-    case 256: return launch<256>(q, k, v, o, b, hq, hkv, s, causal, softcap,
-                                 window, scale, stream);
+    case 64: return launch<64>(q, k, v, o, lse, b, hq, hkv, s, causal,
+                               softcap, window, scale, stream);
+    case 128: return launch<128>(q, k, v, o, lse, b, hq, hkv, s, causal,
+                                 softcap, window, scale, stream);
+    case 192: return launch<192>(q, k, v, o, lse, b, hq, hkv, s, causal,
+                                 softcap, window, scale, stream);
+    case 256: return launch<256>(q, k, v, o, lse, b, hq, hkv, s, causal,
+                                 softcap, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -244,13 +244,13 @@ def test_backward_kernel_matches_plain_version_on_card(case, dtype):
     td = getattr(torch, dtype)
     q, k, v, do = _torch(_inputs(case, seed=2), td, "cuda")
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    route = ops._route(td, d)
+    route, bwd = ops._route(td, d), ops._bwd_route(td, d)
     before = dict(ops.LAUNCHES_BY_KERNEL)
     out = ops.attention(*leaves, causal=causal, softcap=cap, window=win)
     got = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
     assert ops.LAUNCHES_BY_KERNEL == {**before, route: before[route] + 1,
-                                      "bwd": before["bwd"] + 1}
+                                      bwd: before[bwd] + 1}
     want = ref.attention_backward_ref(q, k, v, do, causal=causal,
                                       softcap=cap, window=win)
     for name, g, w in zip("qkv", got, want):
@@ -265,11 +265,17 @@ def test_backward_kernel_is_deterministic_on_card(dtype):
     """No atomics: the same inputs give the same gradient bits."""
     _card()
     case = (2, 14, 2, 300, 64, True, None, None)
-    q, k, v, do = _torch(_inputs(case, seed=3), getattr(torch, dtype), "cuda")
-    o = ops.attention(q, k, v)
-    first = ops._launch_bwd(q, k, v, o, do, True, None, None, None)
+    td = getattr(torch, dtype)
+    q, k, v, do = _torch(_inputs(case, seed=3), td, "cuda")
+    if ops._bwd_route(td, 64) == "bwd_sm90":  # it reads the forward's lse
+        o, lse = ops._launch(q, k, v, True, None, None, None, "sm90",
+                             with_lse=True)
+    else:
+        o, lse = ops.attention(q, k, v), None
+    first = ops._launch_bwd(q, k, v, o, do, True, None, None, None, lse=lse)
     for _ in range(3):
-        again = ops._launch_bwd(q, k, v, o, do, True, None, None, None)
+        again = ops._launch_bwd(q, k, v, o, do, True, None, None, None,
+                                lse=lse)
         for a, b_ in zip(first, again):
             assert torch.equal(a, b_)
 
@@ -277,11 +283,13 @@ def test_backward_kernel_is_deterministic_on_card(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_bits_do_not_depend_on_grad_mode_on_card(dtype):
-    """Serve is unchanged: the forward under inference_mode, without grad
-    and through the autograd Function gives the same bits."""
+    """Serve is unchanged: the forward under inference_mode, without grad,
+    through the autograd Function and (sm90) with its lse pointer set gives
+    the same bits."""
     _card()
     case = (1, 16, 8, 256, 256, True, 50.0, 128)
-    q, k, v, _ = _torch(_inputs(case, seed=4), getattr(torch, dtype), "cuda")
+    td = getattr(torch, dtype)
+    q, k, v, _ = _torch(_inputs(case, seed=4), td, "cuda")
     kw = {"softcap": 50.0, "window": 128}
     with torch.inference_mode():
         served = ops.attention(q, k, v, **kw)
@@ -290,3 +298,7 @@ def test_forward_bits_do_not_depend_on_grad_mode_on_card(dtype):
     graded = ops.attention(*leaves, **kw)
     assert graded.grad_fn is not None and plain.grad_fn is None
     assert torch.equal(served, plain) and torch.equal(served, graded.detach())
+    if ops._route(td, 256) == "sm90":
+        with_lse, _ = ops._launch(q, k, v, True, 50.0, 128, None, "sm90",
+                                  with_lse=True)
+        assert torch.equal(served, with_lse)

@@ -227,8 +227,10 @@ def test_train_step_on_card_matches_cpu():
     torch.cuda.synchronize()
     # remat: each layer's forward twice, one backward a layer
     n = CFG.num_layers
-    assert ops.LAUNCHES_BY_KERNEL == {**before, "simt": before["simt"] + 2 * n,
-                                      "bwd": before["bwd"] + n}
+    route = ops._route(torch.float32, CFG.head_dim)
+    bwd = ops._bwd_route(torch.float32, CFG.head_dim)
+    assert ops.LAUNCHES_BY_KERNEL == {**before, route: before[route] + 2 * n,
+                                      bwd: before[bwd] + n}
     loss_cpu, g_cpu = value_and_grad(cpu, params, batch)
     assert float(loss_card) == pytest.approx(float(loss_cpu), rel=1e-5)
     for (path, a), (_, b) in zip(tree_items(g_card), tree_items(g_cpu)):
