@@ -17,7 +17,8 @@ routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
 Griffin hybrid (recurrentgemma-9b), the SSM (falcon-mamba-7b) and the
 encoder-decoder (whisper-base), each at its full published width, and
 the training path (qwen2-0.5b at its full width, through the
-tensor-core flash-attention backward kernel).  Each path's kernel counts are set to
+tensor-core flash-attention backward kernel), and the sharded path (the
+same training and the deepseek-moe-16b prefill on a (1, 1) DeviceMesh).  Each path's kernel counts are set to
 0 just before it and read just after.  Phases, one JSON line each
 (``python3 chip_smoke.py train`` runs the named phases alone, a
 development run that then fails for the kernels it did not launch):
@@ -200,6 +201,30 @@ development run that then fails for the kernels it did not launch):
              with a nonzero gradient); and a restart: the state after
              step 1 saved with `train.checkpoint.save`, restored, and
              step 2 run from both, bit for bit
+  sharded    the sharded path on a ("data", "model") = (1, 1) CUDA mesh
+             (NCCL, a world of one through a FileStore in a temp dir,
+             DEFAULT_RULES): every collective an identity, every DTensor
+             path and kernel under it run.  `local_map` attention against
+             `ops.attention` at the qwen2 train layer (output and
+             gradients bit for bit; a DTensor straight to the wrapper
+             raising); qwen2-0.5b as in `train` (bf16, remat, B = 4, S =
+             2048, the fixed batch), its state placed by
+             `elastic.reshard_state` (every leaf a DTensor): one warm-up
+             step and 3 more through `make_train_step(param_specs=,
+             mesh=)` beside as many meshless ones, 48 sm90 + 24
+             tensor-core backward launches a step, the first loss bit for
+             bit the meshless one, both medians, both peaks, a profile of
+             one sharded step; elastic: that state saved, restored onto a
+             fresh (1, 1) mesh and onto none, one step each, the losses
+             bit for bit; float32 at 2 layers (B = 2, S = 128): loss within
+             1e-6 relative and every gradient leaf within 1e-5 of its
+             largest magnitude of the meshless step's; deepseek-moe-16b's
+             S = 4096 prefill through expert parallelism (64 local
+             experts, an all-reduce over a group of one; the parameters
+             the meshless model's, not copied): logits bit for bit, 28
+             sm90 launches, both walls after a warm-up at the same shape.
+             `parallel.pipeline.gpipe` has no card check: one card is one
+             stage (its CPU test runs 4 gloo ranks)
 
 The kernels phase also holds both flash-attention kernels against their
 plain version: the sm90 tensor-core kernel (csrc/flash_attention_sm90.cu,
@@ -232,7 +257,8 @@ the CUDA-core kernel's those of the Gemma2-9B float32 consistency run
 (whisper-base's and the float32 train run's in `launches_by_path`), the
 tensor-core backward's those of the bf16 train run (11 steps), the
 CUDA-core backward's those of the float32 train run (3 steps), both
-backwards' times the qwen2-0.5b bf16 train layer's.
+backwards' times the qwen2-0.5b bf16 train layer's; the sharded path's
+launches (through `local_map`) are in each kernel's `launches_by_path`.
 
 Then the kernel table, the card's `nvidia-smi` name and power limit, and
 last the result line.  Any failed phase makes the exit code non-zero and
@@ -339,6 +365,12 @@ TRAIN_CHECK = {"layers": 2, "batch": 2, "seq": 128, "loss_rel": 1e-5,
 # plus, in float32, 1e-7 absolute where a gradient is 0 but for rounding
 FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FLASH_BWD_ATOL = {"float32": 1e-7, "bfloat16": 0.0}
+# the sharded path on a (1, 1) mesh: qwen2-0.5b bf16 steps after a warm-up
+# one (TRAIN's model, batch and schedule), the float32 2-layer step's bars
+# against the meshless one (the one-hot embedding's gradient sums in a
+# GEMM where the gather's backward adds rows), the EP prefill's model
+SHARDED = {"steps": 3, "loss_rel": 1e-6, "leaf_of_max": 1e-5,
+           "moe_arch": "deepseek-moe-16b"}
 
 
 def emit(obj):
@@ -2530,8 +2562,8 @@ def phase_train(torch, state):
         / prof["device_ms"] if prof.get("device_ms") else None,
         "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}
     state["flash_bwd_sm90_launches"] = launches["bwd_sm90"]
-    state["flash_bwd_sm90_launches_by_path"] = {"qwen2-0.5b train bf16":
-                                                launches["bwd_sm90"]}
+    state.setdefault("flash_bwd_sm90_launches_by_path", {})[
+        "qwen2-0.5b train bf16"] = launches["bwd_sm90"]
     state.setdefault("flash_sm90_launches_by_path", {})[
         "qwen2-0.5b train bf16"] = launches["sm90"]
     del model, st, step_fn, pipe, batch
@@ -2561,8 +2593,8 @@ def phase_train(torch, state):
                                             "bwd_sm90": 0},
                              f"fp32 flash launches {launches32}")}
     state["flash_bwd_launches"] = launches32["bwd"]
-    state["flash_bwd_launches_by_path"] = {"qwen2-0.5b train fp32":
-                                           launches32["bwd"]}
+    state.setdefault("flash_bwd_launches_by_path", {})[
+        "qwen2-0.5b train fp32"] = launches32["bwd"]
     state.setdefault("flash_simt_launches_by_path", {})[
         "qwen2-0.5b train fp32"] = launches32["simt"]
     del model, st, pipe
@@ -2653,6 +2685,330 @@ def phase_train(torch, state):
     return out
 
 
+def world_of_one(torch):
+    """A process group of one rank on this card (NCCL), rendezvous through
+    a FileStore in a fresh temp dir (no MASTER_ADDR, no port).  Returns the
+    temp dir, which `end_world` removes."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(d, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    return d
+
+
+def end_world(d):
+    import shutil
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def sharded_attention_check(torch, mesh):
+    """`models.attention`'s `local_map` call against `ops.attention` on the
+    same tensors at the qwen2 train layer's shape (bf16, 14/2 heads of 64,
+    B = 4, S = 2048, causal): output and q/k/v gradients bit for bit, and a
+    DTensor passed straight to `ops.attention` raising TypeError."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import _attention_on_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [(4, 14, 2048, 64), (4, 2, 2048, 64), (4, 2, 2048, 64)]
+    qkv = [torch.randn(s, generator=gen, device="cuda",
+                       dtype=torch.bfloat16) for s in shapes]
+    dout = torch.randn(shapes[0], generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    plain = [t.clone().requires_grad_(True) for t in qkv]
+    out = ops.attention(*plain, causal=True)
+    out.backward(dout)
+    leaves = [t.clone().requires_grad_(True) for t in qkv]
+    rep = [Replicate(), Replicate()]
+    dts = [DTensor.from_local(t, mesh, rep, run_check=False) for t in leaves]
+    out_m = _attention_on_mesh(*dts, None, causal=True, softcap=None,
+                               window=None)
+    out_m.backward(DTensor.from_local(dout, mesh, rep, run_check=False))
+    try:
+        ops.attention(*dts, causal=True)
+        raised = False
+    except TypeError:
+        raised = True
+    return {"shape": {"q": shapes[0], "kv": shapes[1]},
+            "out_bit_identical": bool(torch.equal(out_m.to_local(), out)),
+            "grads_bit_identical": all(
+                torch.equal(a.grad, b.grad) for a, b in zip(leaves, plain)),
+            "dtensor_to_ops_raises": raised}
+
+
+def phase_sharded(torch, state):
+    """The sharded path (`parallel.sharding`, `launch.mesh`, the models on a
+    mesh, `make_train_step(param_specs=, mesh=)`, `train.elastic.
+    reshard_state`, `checkpoint.restore(shardings=)`, expert parallelism)
+    on a ("data", "model") = (1, 1) CUDA mesh (NCCL, a world of one, a
+    FileStore): every collective is an identity, every DTensor path and
+    every kernel under it runs.  qwen2-0.5b at its published widths, bf16,
+    remat, B = 4, S = 2048, the train phase's fixed batch and schedule, its
+    state placed by `reshard_state` (every leaf a DTensor): one warm-up step
+    and 3 more through the mesh, 48 sm90 + 24 tensor-core backward
+    launches a step through `local_map`, the first step's loss bit for bit
+    the meshless step's from the same state and batch, both step times and
+    the peak memory; float32 at full width and 2 layers: loss within 1e-6
+    relative and every gradient leaf within 1e-5 of its largest magnitude
+    of the meshless step's (the one-hot embedding's gradient named);
+    deepseek-moe-16b's S = 4096 prefill through expert parallelism (64
+    local experts, an all-reduce over a group of one): logits bit for bit
+    the meshless prefill's, 28 sm90 launches, both wall times; elastic:
+    the mesh state saved, restored onto a fresh (1, 1) mesh and onto no
+    mesh, one step each, the losses bit for bit equal.  Pipelining
+    (`parallel.pipeline.gpipe`) has no card check: one card is one stage.
+    """
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.api import model_parts
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.parallel.sharding import P, tree_specs_to_shardings
+    from repro_torch.train import (AdamW, DataConfig, SyntheticPipeline,
+                                   cosine_schedule, init_state,
+                                   make_train_step)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.train_step import value_and_grad
+
+    out, problems = {}, []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    store = world_of_one(torch)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        out["mesh"] = {"shape": list(mesh.shape),
+                       "axes": list(mesh.mesh_dim_names),
+                       "backend": "nccl", "world": 1}
+        att = sharded_attention_check(torch, mesh)
+        out["attention_local_map"] = att
+        check(att["out_bit_identical"] and att["grads_bit_identical"],
+              "local_map attention differs from ops.attention")
+        check(att["dtensor_to_ops_raises"], "a DTensor reached ops.attention")
+        torch.cuda.empty_cache()
+
+        # 1. qwen2-0.5b bf16 through the mesh beside the meshless step
+        s = SHARDED
+        cfg = get_config(TRAIN["arch"])
+        n = cfg.num_layers
+        cls = model_parts(cfg)[1]
+        plain = build_model(cfg, device="cuda", seed=0, remat="full")
+        meshed = cls(cfg, plain.params.tree(), remat="full", mesh=mesh)
+        opt = AdamW(learning_rate=cosine_schedule(TRAIN["lr"],
+                                                  TRAIN["warmup"],
+                                                  TRAIN["steps"]),
+                    weight_decay=0.0)
+        pspecs = meshed.param_pspecs(mesh)
+        sspecs = {"params": pspecs, "opt": opt.state_pspecs(pspecs),
+                  "step": P()}
+        pipe = SyntheticPipeline(DataConfig(TRAIN["batch"], TRAIN["seq"],
+                                            cfg.vocab_size, "fixed",
+                                            seed=0), device="cuda")
+        st0 = init_state(plain, opt)
+        st_m = reshard_state(st0, sspecs, mesh)
+        n_dt = sum(type(leaf).__name__ == "DTensor"
+                   for _, leaf in tree_items(st_m))
+        step_p = make_train_step(plain, opt)
+        step_m = make_train_step(meshed, opt, param_specs=pspecs, mesh=mesh)
+        steps = s["steps"] + 1  # the first warms up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, rows_p = run_steps(torch, step_p, st0, pipe, steps, "meshless",
+                              ops)
+        peak_p = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts(ops)  # the sharded path's counts start here
+        st_m, rows_m = run_steps(torch, step_m, st_m, pipe, steps,
+                                 "sharded 1x1", ops)
+        launches = dict(ops.LAUNCHES_BY_KERNEL)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        batch0 = pipe.batch_at(0)
+        prof = device_time_by_kernel(torch, lambda: step_m(st_m, batch0),
+                                     ("train.",))
+        del batch0
+        per_step = {"sm90": 2 * n, "simt": 0, "bwd": 0, "bwd_sm90": n}
+        ms_p = sorted(r["wall_ms"] for r in rows_p[1:])
+        ms_m = sorted(r["wall_ms"] for r in rows_m[1:])
+        out["bf16"] = {
+            "config": {**config_record(cfg), "remat": "full",
+                       "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                       "rules": "DEFAULT_RULES",
+                       "state_leaves_dtensor": n_dt,
+                       "state_leaves": len(tree_items(st_m))},
+            "steps": rows_m, "meshless_steps": rows_p,
+            "loss_step1_sharded": rows_m[0]["loss"],
+            "loss_step1_meshless": rows_p[0]["loss"],
+            "loss_step1_bit_identical": check(
+                rows_m[0]["loss"] == rows_p[0]["loss"],
+                f"step-1 loss {rows_m[0]['loss']} on the mesh, "
+                f"{rows_p[0]['loss']} without"),
+            "losses_finite": check(all(np.isfinite(r["loss"])
+                                       for r in rows_m),
+                                   "sharded losses not finite"),
+            "every_leaf_dtensor": check(n_dt == len(tree_items(st_m)),
+                                        "a state leaf is not a DTensor"),
+            "step_ms_median": ms_m[len(ms_m) // 2], "step_ms_runs": ms_m,
+            "meshless_step_ms_median": ms_p[len(ms_p) // 2],
+            "meshless_step_ms_runs": ms_p,
+            "peak_mem_gb": peak, "meshless_peak_mem_gb": peak_p,
+            "profile": prof, "flash_launches": launches,
+            "launches_ok": check(all(r["flash_launches"] == per_step
+                                     for r in rows_m),
+                                 f"sharded flash launches a step "
+                                 f"{[r['flash_launches'] for r in rows_m]}"
+                                 f", not {per_step}"),
+            "card": torch.cuda.get_device_name(0),
+            "nvidia_smi": nvidia_smi()}
+        state.setdefault("flash_sm90_launches_by_path", {})[
+            "qwen2-0.5b train bf16 sharded 1x1"] = launches["sm90"]
+        state.setdefault("flash_bwd_sm90_launches_by_path", {})[
+            "qwen2-0.5b train bf16 sharded 1x1"] = launches["bwd_sm90"]
+
+        # 4. elastic: the mesh state saved, restored onto a fresh (1, 1)
+        # mesh and onto no mesh, one step each
+        d = os.path.join(ROOT, "build", "sharded_ckpt")
+        shutil.rmtree(d, ignore_errors=True)
+        t = time.perf_counter()
+        ckpt.save(st_m, d, steps)
+        save_s = time.perf_counter() - t
+        mesh2 = make_mesh((1, 1), ("data", "model"))
+        t = time.perf_counter()
+        st_a = ckpt.restore(st0, d, steps, shardings=tree_specs_to_shardings(
+            sspecs, mesh2))
+        st_b = ckpt.restore(st0, d, steps)
+        restore_s = time.perf_counter() - t
+        shutil.rmtree(d, ignore_errors=True)
+        del st_m
+        meshed2 = cls(cfg, plain.params.tree(), remat="full", mesh=mesh2)
+        batch = pipe.batch_at(steps)
+        _, ma = make_train_step(meshed2, opt, param_specs=pspecs,
+                                mesh=mesh2)(st_a, batch)
+        _, mb = step_p(st_b, batch)
+        la, lb = float(ma["loss"]), float(mb["loss"])
+        out["elastic"] = {
+            "saved_step": steps, "save_s": save_s,
+            "restore_both_s": restore_s,
+            "loss_restored_mesh": la, "loss_restored_meshless": lb,
+            "bit_identical": check(la == lb, f"elastic losses {la} / {lb}")}
+        del st_a, st_b, st0, meshed, meshed2, plain, step_p, step_m
+        torch.cuda.empty_cache()
+
+        # 2. float32 at full width and 2 layers: one step on the mesh
+        # against the meshless step
+        c = TRAIN_CHECK
+        cfg_c = cfg.with_(num_layers=c["layers"], dtype="float32")
+        plain = build_model(cfg_c, device="cuda", seed=1, remat="full")
+        meshed = cls(cfg_c, plain.params.tree(), remat="full", mesh=mesh)
+        batch = {k: v.cuda() for k, v in SyntheticPipeline(DataConfig(
+            c["batch"], c["seq"], cfg.vocab_size, "random", seed=1),
+            device="cpu").batch_at(0).items()}
+        loss_p, grads_p = value_and_grad(plain, plain.params.tree(), batch)
+        reset_flash_counts(ops)
+        loss_m, grads_m = value_and_grad(meshed, meshed.params.tree(), batch)
+        torch.cuda.synchronize()
+        l32 = dict(ops.LAUNCHES_BY_KERNEL)
+        leaves = {}
+        for (path, g), (_, w) in zip(tree_items(grads_m),
+                                     tree_items(grads_p)):
+            g = g.full_tensor()
+            err, top = float((g - w).abs().max()), float(w.abs().max())
+            leaves["/".join(path)] = err / top if top else err
+        rel = abs(float(loss_m) - float(loss_p)) / abs(float(loss_p))
+        worst = max(leaves, key=leaves.get)
+        out["fp32"] = {
+            "layers": c["layers"], "batch": c["batch"], "seq": c["seq"],
+            "loss_sharded": float(loss_m), "loss_meshless": float(loss_p),
+            "loss_rel": rel, "leaf_err_of_max": leaves, "worst_leaf": worst,
+            "worst_leaf_err_of_max": leaves[worst],
+            "embedding_err_of_max": leaves["embedding"],
+            "flash_launches": l32,
+            "ok": check(rel <= s["loss_rel"]
+                        and max(leaves.values()) <= s["leaf_of_max"],
+                        f"fp32 sharded step: loss rel {rel}, worst leaf "
+                        f"{worst} {leaves[worst]}")}
+        state.setdefault("flash_simt_launches_by_path", {})[
+            "qwen2-0.5b fp32 2-layer step sharded 1x1"] = l32["simt"]
+        state.setdefault("flash_bwd_launches_by_path", {})[
+            "qwen2-0.5b fp32 2-layer step sharded 1x1"] = l32["bwd"]
+        del plain, meshed, grads_p, grads_m
+        torch.cuda.empty_cache()
+
+        # 3. deepseek-moe-16b prefill through expert parallelism
+        cfg_e = get_config(s["moe_arch"])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.inference_mode():
+            plain = build_model(cfg_e, device="cuda", seed=0)
+            meshed = model_parts(cfg_e)[1](cfg_e, plain.params.tree(),
+                                           mesh=mesh)
+            shared = all(a.to_local().data_ptr() == b.data_ptr()
+                         for (_, a), (_, b)
+                         in zip(tree_items(meshed.params.tree()),
+                                tree_items(plain.params.tree())))
+            warm = torch.randint(0, cfg_e.vocab_size, (1, NEW_PREFILL_S),
+                                 generator=gen, device="cuda")
+            tokens = torch.randint(0, cfg_e.vocab_size, (1, NEW_PREFILL_S),
+                                   generator=gen, device="cuda")
+            # one warm-up forward each at the timed shape (cuBLAS, and
+            # DTensor's sharding-propagation cache, keyed by shapes)
+            plain.forward(warm)
+            meshed.forward(warm)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref = plain.forward(tokens)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t
+            reset_flash_counts(ops)  # the EP prefill's counts start here
+            t = time.perf_counter()
+            got = meshed.forward(tokens)
+            torch.cuda.synchronize()
+            wall_m = time.perf_counter() - t
+            ep = dict(ops.LAUNCHES_BY_KERNEL)
+            got = got.to_local()
+            same = bool(torch.equal(got, ref))
+            n_attn = attention_layers(cfg_e)
+        out["moe_ep"] = {
+            "arch": cfg_e.name, "batch": 1, "seq": NEW_PREFILL_S,
+            "experts_local": cfg_e.experts_padded // mesh.size(1),
+            "expert_start": 0, "params_shared_with_meshless": shared,
+            "wall_s": wall_m, "meshless_wall_s": wall_p,
+            "logits_bit_identical": check(same, "EP logits differ"),
+            "logits_finite": check(bool(torch.isfinite(got).all()),
+                                   "EP logits not finite"),
+            "flash_launches": ep,
+            "launches_ok": check(ep == {"sm90": n_attn, "simt": 0,
+                                        "bwd": 0, "bwd_sm90": 0},
+                                 f"EP prefill flash launches {ep}")}
+        state["flash_sm90_launches_by_path"][
+            f"{cfg_e.name} EP prefill 1x1"] = ep["sm90"]
+        del plain, meshed, ref, got
+        torch.cuda.empty_cache()
+    finally:
+        end_world(store)
+    if problems:
+        raise AssertionError(f"sharded path failed its checks: {problems}")
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -2681,7 +3037,8 @@ def main():
               ("hybrid", phase_hybrid, (torch, state)),
               ("ssm", phase_ssm, (torch, state)),
               ("encdec", phase_encdec, (torch, state)),
-              ("train", phase_train, (torch, state))]
+              ("train", phase_train, (torch, state)),
+              ("sharded", phase_sharded, (torch, state))]
     # `python3 chip_smoke.py train ...` runs the named phases alone (a
     # development run: the kernel line then misses the others' kernels and
     # the run fails)

@@ -88,12 +88,12 @@ def main():
         for name in ("outer", "inner", "inner", "outer"):
             fn = positions_outer if name == "outer" else positions_inner
             runs.append((name, event_ms(lambda: fn(r.idx, e))))
-        layer_ms = event_ms(lambda: mlp._moe_local(p, x, cfg, capacity),
-                            reps=10)
+        layer_ms = event_ms(lambda: mlp._moe_local(
+            p, x, cfg, 0, cfg.experts_padded, capacity), reps=10)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            mlp._moe_local(p, x, cfg, capacity)
+            mlp._moe_local(p, x, cfg, 0, cfg.experts_padded, capacity)
             sync_free = True
         except RuntimeError:
             sync_free = False

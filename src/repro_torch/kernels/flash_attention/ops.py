@@ -42,6 +42,9 @@ logsumexp is written, and the forward gives the same bits as without
 autograd.  A CPU call is differentiated through the plain version by
 autograd itself.
 
+A DTensor raises TypeError here, on either device: on a mesh the model
+calls `attention` on each rank's local tensors under ``local_map``.
+
 `LAUNCHES` counts kernel launches (and nothing else), so a run can show
 that its path went through a kernel; `LAUNCHES_BY_KERNEL` splits the count
 by route ("sm90", "simt") and counts the backward's ("bwd_sm90", "bwd")
@@ -57,6 +60,7 @@ import torch
 
 from .. import _build
 from ...obs.profiler import named_scope
+from ...parallel.sharding import is_dtensor
 from .ref import attention_chunked, attention_ref
 
 __all__ = ["attention", "smem_bytes", "LAUNCHES", "LAUNCHES_BY_KERNEL"]
@@ -126,8 +130,19 @@ def smem_bytes(head_dim: int, route: str = "simt") -> int:
     return int(fn(head_dim))
 
 
+def _no_dtensor(*ts) -> None:
+    """The kernels read raw pointers, and a DTensor's are its wrapper's:
+    on a mesh the model calls `attention` on each rank's local tensors
+    (``models.attention``, under ``local_map``), and a DTensor here is a
+    caller's mistake, never run through the plain version either."""
+    if any(is_dtensor(t) for t in ts):
+        raise TypeError("flash attention takes local tensors, not DTensors: "
+                        "call it under local_map on each rank's shard")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            softcap: Optional[float], window: Optional[int]) -> None:
+    _no_dtensor(q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"attention takes float32 or bfloat16 q, k, v of one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -191,6 +206,7 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softcap, window, scale, route):
+        _no_dtensor(q, k, v)
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
         if _bwd_route(q.dtype, q.shape[3]) == "bwd_sm90":
             out, lse = _launch(q, k, v, causal, softcap, window, scale, route,

@@ -1,1 +1,1 @@
-"""Launchers: the serving entry point."""
+"""Launchers: the serve and train entry points and the meshes."""

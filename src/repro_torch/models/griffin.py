@@ -19,8 +19,11 @@ cache per attention layer, both updated in place.  Attention is always
 local (windowed MQA) and goes through the flash-attention kernel in the
 prefill.  The embeddings are tied and scaled by sqrt(d_model); there is no
 final softcap, as in the reference.  ``remat`` recomputes each block in
-the backward; ``mesh``, ``sp``, ``rules`` and the sharding specs wait for
-the sharding slice.
+the backward.  On a ``mesh`` the parameters are DTensors placed per
+`param_pspecs` and the blocks carry the reference's anchors
+(`sp_boundary` around the mixers and MLPs, `sp_constrain` after each
+group); `cache_specs` gives the decode cache's specs, though decode
+itself runs without a mesh.
 """
 
 from __future__ import annotations
@@ -31,14 +34,15 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.profiler import named_scope
+from ..parallel.sharding import DEFAULT_RULES, AxisRules, spec_for
 from . import attention as attn
 from . import mlp as ffn
-from .common import (LanguageModel, ParamDef, records_grad, rms_norm,
-                     stack_defs, tree_map)
+from .common import (LanguageModel, ParamDef, mesh_forward, records_grad,
+                     rms_norm, sp_constrain, stack_defs, tree_map)
 from .config import ModelConfig
 from .rope import default_positions
 
-__all__ = ["GriffinLM", "defs", "lru_scan"]
+__all__ = ["GriffinLM", "defs", "cache_specs", "lru_scan"]
 
 _NBLOCKS = 16
 _C = 8.0
@@ -95,6 +99,35 @@ def defs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_seq: int,
+                rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+    """Specs of `GriffinLM.init_cache`'s tree (the reference's
+    ``cache_pspecs``), allocating nothing."""
+    rules = rules or DEFAULT_RULES
+    g, w = _groups(cfg), cfg.lru_width
+    length = min(cfg.local_window or max_seq, max_seq)
+    rc = {"conv": spec_for((g, 2, batch, 3, w),
+                           ("layers", None, "batch", None, "lru"), mesh,
+                           rules),
+          "h": spec_for((g, 2, batch, w), ("layers", None, "batch", "lru"),
+                        mesh, rules)}
+    la = attn.cache_logical_axes()
+    shapes = {"k": (g, batch, cfg.num_kv_heads, length, cfg.head_dim),
+              "v": (g, batch, cfg.num_kv_heads, length, cfg.head_dim),
+              "slot_pos": (g, length)}
+    out = {"rec": rc,
+           "att": {k: spec_for(shapes[k], ("layers",) + la[k], mesh, rules)
+                   for k in shapes}}
+    if _tail(cfg):
+        t = _tail(cfg)
+        out["tail"] = {
+            "conv": spec_for((t, batch, 3, w),
+                             ("layers", "batch", None, "lru"), mesh, rules),
+            "h": spec_for((t, batch, w), ("layers", "batch", "lru"), mesh,
+                          rules)}
+    return out
+
+
 def _blockdiag_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """w [NB, c, c]; x [..., NB*c] -> [..., NB*c], in x's dtype."""
     nb, c, _ = w.shape
@@ -143,8 +176,14 @@ class GriffinLM(LanguageModel):
     `common.init_params` or `convert.params_from_reference`)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 remat: str = "full"):
-        super().__init__(cfg, params, defs(cfg), remat)
+                 remat: str = "full", *, mesh=None, sp: bool = False,
+                 rules: Optional[AxisRules] = None):
+        super().__init__(cfg, params, defs(cfg), remat, mesh=mesh, sp=sp,
+                         rules=rules)
+
+    def cache_pspecs(self, mesh, batch: int, max_seq: int,
+                     rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+        return cache_specs(self.cfg, mesh, batch, max_seq, rules)
 
     # -- RG-LRU mixer ----------------------------------------------------
     def _rec_mixer(self, p, h: torch.Tensor, cache=None) -> torch.Tensor:
@@ -179,16 +218,18 @@ class GriffinLM(LanguageModel):
 
     def _rec_block(self, p, x: torch.Tensor, cache=None) -> torch.Tensor:
         eps = self.cfg.norm_eps
-        x = x + self._rec_mixer(p, rms_norm(x, p["ln"], eps), cache)
-        return x + ffn.mlp_apply(p["mlp"], rms_norm(x, p["mlp_ln"], eps),
-                                 self.cfg)
+        h = self._boundary(rms_norm(x, p["ln"], eps))
+        x = x + self._boundary(self._rec_mixer(p, h, cache))
+        h = self._boundary(rms_norm(x, p["mlp_ln"], eps))
+        return x + self._boundary(ffn.mlp_apply(p["mlp"], h, self.cfg))
 
     def _att_block(self, p, x: torch.Tensor, positions, cache=None,
                    pos=None) -> torch.Tensor:
         cfg = self.cfg
-        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        h = self._boundary(rms_norm(x, p["ln"], cfg.norm_eps))
         if cache is None:
-            a = attn.attn_apply(p["attn"], h, cfg, positions, local=True)
+            a = attn.attn_apply(p["attn"], h, cfg, positions, local=True,
+                                rules=self.rules)
         else:
             a, _ = attn.attn_decode(p["attn"], h, cfg, cache, pos, local=True)
         x = x + a
@@ -210,6 +251,7 @@ class GriffinLM(LanguageModel):
             yield "rec", at(p["tail"], t), at(c.get("tail"), t)
 
     # -- forward ---------------------------------------------------------
+    @mesh_forward
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill, or
@@ -220,8 +262,11 @@ class GriffinLM(LanguageModel):
             positions = default_positions(b, s, device=tokens.device)
         x = self._embed(p, tokens)
         for kind, pi, _ in self._layers(p):
-            x = self._layer_call(self._rec_block, pi, x) if kind == "rec" \
-                else self._layer_call(self._att_block, pi, x, positions)
+            if kind == "rec":
+                x = self._layer_call(self._rec_block, pi, x)
+            else:  # the end of a (rec, rec, attn) group
+                x = self._layer_call(self._att_block, pi, x, positions)
+                x = sp_constrain(x, self.mesh, self.sp, self.rules)
         x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)
         return self._unembed(p, x)
 
@@ -255,6 +300,7 @@ class GriffinLM(LanguageModel):
                     pos: int):
         """tokens [B, 1], pos an int -> (float32 logits [B, 1, V], cache);
         the cache is updated in place and returned."""
+        self._no_mesh("decode_step")
         p = self.params.tree()
         x = self._embed(p, tokens)
         for kind, pi, ci in self._layers(p, cache):

@@ -15,8 +15,11 @@ recurrent step on the reference's cache (``conv`` [L, B, k-1, E] in the
 model dtype, ``ssm`` [L, B, E, N] float32), updated in place.  The
 reference unembeds with the embedding's transpose whatever
 ``tie_embeddings`` says, and so does this model.  ``remat`` recomputes
-each layer in the backward; ``mesh``, ``sp``, ``rules`` and the sharding
-specs wait for the sharding slice.
+each layer in the backward.  On a ``mesh`` the parameters are DTensors
+placed per `param_pspecs` and each layer carries the reference's anchors
+(`sp_boundary` around the mixer, `sp_constrain` on the residual);
+`cache_specs` gives the decode cache's specs, though decode itself runs
+without a mesh.
 """
 
 from __future__ import annotations
@@ -27,12 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.profiler import named_scope
-from .common import (LanguageModel, ParamDef, embed_lookup, records_grad,
-                     rms_norm, stack_defs)
+from ..parallel.sharding import (DEFAULT_RULES, AxisRules, is_dtensor,
+                                 replicate_like, spec_for)
+from .common import (LanguageModel, ParamDef, embed_lookup, mesh_forward,
+                     records_grad, rms_norm, sp_constrain, stack_defs)
 from .config import ModelConfig
 from .griffin import lru_scan
 
-__all__ = ["MambaLM", "defs", "selective_scan"]
+__all__ = ["MambaLM", "defs", "cache_specs", "selective_scan"]
 
 _CHUNK = 256
 
@@ -50,8 +55,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     asserts).  The state entering a chunk is folded into the chunk's first
     element (b_0 <- a_0 h + b_0), so the scan starts from 0; the reference
     scans the chunk and adds (prod a) h afterwards, so the two agree to
-    float32 rounding, not bit for bit.  Where autograd records, the fold
-    is out of place (the same product and sum)."""
+    float32 rounding, not bit for bit.  Where autograd records, or on a
+    mesh, the fold is out of place (the same product and sum)."""
     bsz, s, e = x.shape
     n = a.shape[1]
     nchunks = max(1, s // chunk)
@@ -59,8 +64,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"selective_scan: S = {s} does not split into "
                          f"{nchunks} equal chunks (chunk {chunk})")
     cs = s // nchunks
-    h = torch.zeros((bsz, e, n), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0
+    h = replicate_like(torch.zeros((bsz, e, n), dtype=torch.float32,
+                                   device=x.device), x) if h0 is None else h0
     af = a.float()
     ys = []
     for i in range(nchunks):
@@ -69,7 +74,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         da = torch.exp(dtf[..., None] * af)  # [B, cs, E, N]
         dbx = (dtf * x[:, part].float())[..., None] \
             * b[:, part, None, :].float()
-        if records_grad(dbx, da, h):
+        if records_grad(dbx, da, h) or is_dtensor(dbx):
             dbx = torch.cat([torch.addcmul(dbx[:, :1], da[:, :1], h[:, None]),
                              dbx[:, 1:]], dim=1)
         else:
@@ -110,13 +115,33 @@ def defs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_seq: int,
+                rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+    """Specs of `MambaLM.init_cache`'s tree (the reference's
+    ``cache_pspecs``), allocating nothing."""
+    rules = rules or DEFAULT_RULES
+    L = cfg.num_layers
+    return {
+        "conv": spec_for((L, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                         ("layers", "batch", None, "inner"), mesh, rules),
+        "ssm": spec_for((L, batch, cfg.d_inner, cfg.ssm_state),
+                        ("layers", "batch", "inner", "state"), mesh, rules),
+    }
+
+
 class MambaLM(LanguageModel):
     """The SSM LM with `params`, a tree of `defs(cfg)`'s shapes (from
     `common.init_params` or `convert.params_from_reference`)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 remat: str = "full"):
-        super().__init__(cfg, params, defs(cfg), remat)
+                 remat: str = "full", *, mesh=None, sp: bool = False,
+                 rules: Optional[AxisRules] = None):
+        super().__init__(cfg, params, defs(cfg), remat, mesh=mesh, sp=sp,
+                         rules=rules)
+
+    def cache_pspecs(self, mesh, batch: int, max_seq: int,
+                     rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+        return cache_specs(self.cfg, mesh, batch, max_seq, rules)
 
     # -- mixer -----------------------------------------------------------
     def _mixer(self, p, h: torch.Tensor, cache=None) -> torch.Tensor:
@@ -168,16 +193,19 @@ class MambaLM(LanguageModel):
         return self._unembed(p, x, tied=True)
 
     def _block(self, lp, x: torch.Tensor) -> torch.Tensor:
-        return x + self._mixer(lp, rms_norm(x, lp["ln"], self.cfg.norm_eps))
+        h = self._boundary(rms_norm(x, lp["ln"], self.cfg.norm_eps))
+        x = x + self._boundary(self._mixer(lp, h))
+        return sp_constrain(x, self.mesh, self.sp, self.rules)
 
     # -- forward ---------------------------------------------------------
+    @mesh_forward
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill, or
         the train step's forward: it runs under the caller's grad mode;
         `positions` is accepted and unused, as in the reference)."""
         p = self.params.tree()
-        x = embed_lookup(p["embedding"], tokens)
+        x = embed_lookup(p["embedding"], tokens, self.mesh, self.rules)
         for lp, _ in self._layers(p):
             x = self._layer_call(self._block, lp, x)
         return self._logits(p, x)
@@ -204,6 +232,7 @@ class MambaLM(LanguageModel):
         """tokens [B, 1] -> (float32 logits [B, 1, V], cache); the cache
         is updated in place and returned (`pos` is unused: the state
         carries the position)."""
+        self._no_mesh("decode_step")
         p = self.params.tree()
         x = embed_lookup(p["embedding"], tokens)
         for lp, lc in self._layers(p, cache):

@@ -8,9 +8,16 @@ MoE (qwen2-moe, deepseek-moe): shared experts (an always-on dense FFN of
 width ``shared_d_ff``, with no gate) + routed experts with top-k gating and
 a per-group capacity, dropped slots included, as the reference computes
 them.  qwen2-moe's 60 experts are padded to 64, the pad experts' router
-logits forced to ``NEG_INF``.  The port runs the reference's single-shard
-path (``mesh=None``); expert parallelism over a mesh waits for the
-sharding slice (ROADMAP Queue 1, item 10).
+logits forced to ``NEG_INF``.
+
+Expert parallelism (``moe_apply(..., mesh=...)`` on a mesh with a
+``model`` axis), as the reference's ``shard_map``: tokens stay sharded
+over the dp axes and replicated over ``model``, each ``model`` rank runs
+its ``e_local = experts_padded / model`` experts from ``e_start = rank *
+e_local`` on its local tokens (the capacity from the local token count),
+and the partial outputs are summed over ``model`` (an all-reduce of the
+``model`` sub-group, DTensor's ``Partial`` -> ``Replicate``).  No
+all-to-all: activations are replicated across the TP axis between blocks.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.profiler import named_scope
+from ..parallel.sharding import (P, batch_axes, constrain, mesh_axis_sizes,
+                                 placements, replicate_like)
 from .common import ParamDef
 from .config import ModelConfig
 
@@ -127,30 +136,47 @@ def moe_route(router: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig,
     return MoeRoute(g, cap, idx, gate, pos, pos < cap)
 
 
-def moe_dispatch(x2d: torch.Tensor, r: MoeRoute, cfg: ModelConfig):
+def moe_dispatch(x2d: torch.Tensor, r: MoeRoute, cfg: ModelConfig,
+                 e_start: int = 0, e_local: Optional[int] = None):
     """(xe, row): the kept slots' token rows of x2d [T, d] gathered into an
-    expert-major buffer xe [E, G * cap, d] (group-major within an expert,
+    expert-major buffer xe [E_loc, G * cap, d] for experts e_start ..
+    e_start + e_local - 1 (default: all; group-major within an expert,
     then position; an empty slot is a zero row), and row [T * K], each
-    (token, k) slot's row in it (E * G * cap for a dropped slot).  The
-    reference's one-hot product with 0/1 entries is exact, so xe holds its
-    dispatched rows bit for bit."""
+    (token, k) slot's row in it (E_loc * G * cap for a slot dropped or
+    routed to another shard's expert).  The reference's one-hot product
+    with 0/1 entries is exact, so xe holds its dispatched rows bit for
+    bit."""
     t, d = x2d.shape
-    e_total, k = cfg.experts_padded, cfg.top_k
+    k = cfg.top_k
+    e_local = cfg.experts_padded if e_local is None else e_local
     ngroups = t // r.g
     group = torch.arange(ngroups, device=x2d.device).view(ngroups, 1, 1)
-    row = (r.idx * ngroups + group) * r.cap + r.pos
-    rows = e_total * ngroups * r.cap
-    row = torch.where(r.within, row, rows).view(-1)
+    lidx = r.idx - e_start if e_start else r.idx
+    row = (lidx * ngroups + group) * r.cap + r.pos
+    rows = e_local * ngroups * r.cap
+    keep = _kept(r, e_start, e_local, cfg.experts_padded)
+    row = torch.where(keep, row, rows).view(-1)
     token = torch.arange(t, device=x2d.device).repeat_interleave(k)
     src = torch.full((rows + 1,), t, dtype=torch.long, device=x2d.device)
     src[row] = token  # kept rows are unique; only the dump row repeats
     xpad = torch.cat([x2d, x2d.new_zeros(1, d)])  # row t: the empty slot
-    return xpad[src[:rows]].view(e_total, ngroups * r.cap, d), row
+    return xpad[src[:rows]].view(e_local, ngroups * r.cap, d), row
 
 
-def _moe_local(p, x2d: torch.Tensor, cfg: ModelConfig,
-               capacity: int) -> torch.Tensor:
-    """Routed-expert math on x2d [T, d], all experts local.
+def _kept(r: MoeRoute, e_start: int, e_local: int,
+          e_total: int) -> torch.Tensor:
+    """[G, g, K]: slots within capacity whose expert is one of this
+    shard's (`r.within` itself on a single shard)."""
+    if e_start == 0 and e_local == e_total:
+        return r.within
+    return r.within & (r.idx >= e_start) & (r.idx < e_start + e_local)
+
+
+def _moe_local(p, x2d: torch.Tensor, cfg: ModelConfig, e_start: int,
+               e_local: int, capacity: int) -> torch.Tensor:
+    """Routed-expert math on one shard: x2d [T, d], the expert weights
+    those of experts e_start .. e_start + e_local - 1 (all of them on a
+    single shard: 0, experts_padded).
 
     The reference builds one-hot dispatch and combine tensors [G, g, E, C]
     and contracts them with einsums; at deepseek-moe-16b's S = 4096 prefill
@@ -159,40 +185,71 @@ def _moe_local(p, x2d: torch.Tensor, cfg: ModelConfig,
     kept slots' rows are gathered (`moe_dispatch`), the experts run as
     batched matrix products, and each token gathers its K expert outputs
     back, weighted by its gates rounded to the activation dtype (the
-    reference's ``comb.astype(dt)``; a dropped slot weighs 0).  The combine
-    sums the K terms in top-k order, the reference's einsum in expert
-    order.  The four steps are labelled for `torch.profiler` ("moe.route",
-    "moe.dispatch", "moe.experts", "moe.combine")."""
+    reference's ``comb.astype(dt)``; a dropped slot, or one routed to
+    another shard's expert, weighs 0).  The combine sums the K terms in
+    top-k order, the reference's einsum in expert order.  The four steps
+    are labelled for `torch.profiler` ("moe.route", "moe.dispatch",
+    "moe.experts", "moe.combine")."""
     dt = x2d.dtype
     t, d = x2d.shape
     with named_scope("moe.route"):
         r = moe_route(p["router"], x2d, cfg, capacity)
     with named_scope("moe.dispatch"):
-        xe, row = moe_dispatch(x2d, r, cfg)
+        xe, row = moe_dispatch(x2d, r, cfg, e_start, e_local)
     with named_scope("moe.experts"):
         h = F.silu(torch.bmm(xe, p["wg"].to(dt))) \
             * torch.bmm(xe, p["wu"].to(dt))
         ye = torch.bmm(h, p["wd"].to(dt)).view(-1, d)
     with named_scope("moe.combine"):
-        w = (r.gate.to(dt) * r.within).view(t, 1, cfg.top_k)
-        back = ye[torch.where(r.within.view(-1), row, 0)].view(
-            t, cfg.top_k, d)
+        keep = _kept(r, e_start, e_local, cfg.experts_padded)
+        w = (r.gate.to(dt) * keep).view(t, 1, cfg.top_k)
+        back = ye[torch.where(keep.view(-1), row, 0)].view(t, cfg.top_k, d)
         return torch.bmm(w, back).view(t, d)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
               dropless: bool = False) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]: the reference's single-shard path.
-    ``dropless=True`` sizes the capacity at T * top_k (no drops; the
-    serving path), else ``int(moe_capacity_factor * T * top_k / E)``."""
-    b, s, d = x.shape
-    t = b * s
-    if dropless:
-        capacity = t * cfg.top_k
+    """x [B, S, d] -> [B, S, d].  Without a mesh (or a ``model`` axis) the
+    reference's single-shard path; with one, expert parallelism (the
+    module docstring) on `x`'s batch shard.  ``dropless=True`` sizes the
+    capacity at T * top_k (no drops; the serving path)."""
+    d = x.shape[-1]
+    e_total = cfg.experts_padded
+
+    def run(x3d, router, wg, wu, wd, e_start, e_local):
+        t = x3d.shape[0] * x3d.shape[1]
+        if dropless:
+            capacity = t * cfg.top_k
+        else:
+            capacity = max(1, int(cfg.moe_capacity_factor * t * cfg.top_k
+                                  / e_total))
+        pp = {"router": router, "wg": wg, "wu": wu, "wd": wd}
+        y = _moe_local(pp, x3d.reshape(t, d), cfg, e_start, e_local,
+                       capacity)
+        return y.view(x3d.shape)
+
+    if mesh is None or "model" not in mesh_axis_sizes(mesh):
+        out = run(x, p["router"], p["wg"], p["wu"], p["wd"], 0, e_total)
     else:
-        capacity = max(1, int(cfg.moe_capacity_factor * t * cfg.top_k
-                              / cfg.experts_padded))
-    out = _moe_local(p, x.reshape(t, d), cfg, capacity).view(b, s, d)
-    if cfg.shared_d_ff:
-        out = out + mlp_apply(p["shared"], x, cfg)
+        from torch.distributed.tensor import Partial
+        from torch.distributed.tensor.experimental import local_map
+
+        e_local = e_total // mesh_axis_sizes(mesh)["model"]
+        e_start = mesh.get_local_rank("model") * e_local
+        xs, ws = P(batch_axes(mesh), None, None), P("model", None, None)
+        # the local sums, Partial over `model` until the all-reduce
+        part = [Partial() if n == "model" else pl for n, pl
+                in zip(mesh_axis_sizes(mesh), placements(xs, mesh))]
+        args = [constrain(x, mesh, xs), constrain(p["router"], mesh,
+                                                  P(None, None))]
+        args += [constrain(p[k], mesh, ws) for k in ("wg", "wu", "wd")]
+        out = local_map(lambda *a: run(*a, e_start, e_local),
+                        out_placements=part,
+                        in_placements=tuple(a.placements for a in args),
+                        device_mesh=mesh)(*args)
+        x = args[0]
+        out = out.redistribute(mesh, placements(xs, mesh))
+    if cfg.shared_d_ff:  # (plain weights join a DTensor x replicated)
+        shared = {k: replicate_like(w, x) for k, w in p["shared"].items()}
+        out = out + mlp_apply(shared, x, cfg)
     return out

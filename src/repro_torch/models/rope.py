@@ -1,7 +1,9 @@
 """Rotary position embeddings: standard RoPE and qwen2-vl M-RoPE.
 
 The JAX package's ``models/rope.py`` in PyTorch: angles in float32, a
-split-half rotation in float32, the result cast back to x's dtype.
+split-half rotation in float32, the result cast back to x's dtype.  On a
+mesh (x a DTensor) the positions are the global ones and the angles
+replicated DTensors.
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..parallel.sharding import replicate_like
 
 __all__ = ["apply_rope", "apply_mrope", "default_positions",
            "mrope_positions"]
@@ -29,6 +33,7 @@ def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """x [..., S, D]; cos/sin broadcastable [..., S, D/2]. Split-half rotation."""
     half = x.shape[-1] // 2
+    cos, sin = replicate_like(cos, x), replicate_like(sin, x)
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -16,8 +16,13 @@ groups of ``len(layer_pattern)`` layers is a Python loop over the stacked
 layers here; stacked layer ``i`` is of kind
 ``layer_pattern[i % len(layer_pattern)]``, and ``layer0`` is global.
 ``remat`` recomputes each block in the backward (`LanguageModel.
-_layer_call`); ``mesh``, ``sp`` and ``rules`` wait for the sharding slice.
-The MoE blocks route dropless in decode, as the reference's do.
+_layer_call`).  On a ``mesh`` the parameters are DTensors placed per
+`param_pspecs`, the blocks carry the reference's anchors (`sp_boundary`
+around attention and the FFN, `sp_constrain` after each pattern group,
+the one-hot embedding and `logits_constrain`) and the MoE blocks run
+expert parallelism (`mlp.moe_apply`); `cache_specs` gives the decode
+cache's specs, though decode itself runs without a mesh.  The MoE blocks
+route dropless in decode, as the reference's do.
 """
 
 from __future__ import annotations
@@ -28,12 +33,13 @@ import torch
 
 from . import attention as attn
 from . import mlp as ffn
-from .common import (LanguageModel, ParamDef, rms_norm, stack_defs,
-                     tree_map)
+from ..parallel.sharding import DEFAULT_RULES, AxisRules, spec_for
+from .common import (LanguageModel, ParamDef, mesh_forward, rms_norm,
+                     sp_constrain, stack_defs, tree_map)
 from .config import ModelConfig
 from .rope import default_positions, mrope_positions
 
-__all__ = ["TransformerLM", "defs"]
+__all__ = ["TransformerLM", "defs", "cache_specs"]
 
 
 def _ffn_defs(cfg: ModelConfig, kind: str) -> Dict[str, ParamDef]:
@@ -82,13 +88,46 @@ def defs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_seq: int,
+                rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+    """Specs of `TransformerLM.init_cache`'s tree (the reference's
+    ``cache_pspecs``), allocating nothing."""
+    rules = rules or DEFAULT_RULES
+    pattern = cfg.layer_pattern
+    groups = _scanned_layers(cfg) // len(pattern)
+    logical = attn.cache_logical_axes()
+
+    def shapes(length):
+        return {"k": (batch, cfg.num_kv_heads, length, cfg.head_dim),
+                "v": (batch, cfg.num_kv_heads, length, cfg.head_dim),
+                "slot_pos": (length,)}
+
+    def one(local):
+        length = (min(cfg.local_window, max_seq)
+                  if (local and cfg.local_window) else max_seq)
+        return {k: spec_for((groups,) + sh, ("layers",) + logical[k], mesh,
+                            rules) for k, sh in shapes(length).items()}
+
+    out = {f"p{i}": one(kind == "local") for i, kind in enumerate(pattern)}
+    if cfg.first_dense_d_ff:
+        out["layer0"] = {k: spec_for(sh, logical[k], mesh, rules)
+                         for k, sh in shapes(max_seq).items()}
+    return out
+
+
 class TransformerLM(LanguageModel):
     """The dense or MoE LM with `params`, a tree of `defs(cfg)`'s shapes (from
     `common.init_params` or `convert.params_from_reference`)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 remat: str = "full"):
-        super().__init__(cfg, params, defs(cfg), remat)
+                 remat: str = "full", *, mesh=None, sp: bool = False,
+                 rules: Optional[AxisRules] = None):
+        super().__init__(cfg, params, defs(cfg), remat, mesh=mesh, sp=sp,
+                         rules=rules)
+
+    def cache_pspecs(self, mesh, batch: int, max_seq: int,
+                     rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+        return cache_specs(self.cfg, mesh, batch, max_seq, rules)
 
     def _layers(self, p):
         """(kind, parameters of stacked layer i) for every stacked layer, as
@@ -104,21 +143,23 @@ class TransformerLM(LanguageModel):
         local = kind == "local"
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if cache is None:
-            a = attn.attn_apply(p["attn"], h, cfg, positions, local=local)
+            a = attn.attn_apply(p["attn"], self._boundary(h), cfg, positions,
+                                local=local, rules=self.rules)
         else:
             a, cache = attn.attn_decode(p["attn"], h, cfg, cache, pos,
                                         local=local)
         if "ln1_post" in p:
             a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
-        x = x + a
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + self._boundary(a)
+        h = self._boundary(rms_norm(x, p["ln2"], cfg.norm_eps))
         if "router" in p["ffn"]:
-            f = ffn.moe_apply(p["ffn"], h, cfg, dropless=cache is not None)
+            f = ffn.moe_apply(p["ffn"], h, cfg, mesh=self.mesh,
+                              dropless=cache is not None)
         else:
             f = ffn.mlp_apply(p["ffn"], h, cfg)
         if "ln2_post" in p:
             f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
-        return x + f
+        return x + self._boundary(f)
 
     def _positions(self, tokens, positions):
         if positions is not None:
@@ -128,6 +169,7 @@ class TransformerLM(LanguageModel):
             return mrope_positions(b, s, device=tokens.device)
         return default_positions(b, s, device=tokens.device)
 
+    @mesh_forward
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S] -> float32 logits [B, S, V] (the fused prefill, or
@@ -138,8 +180,11 @@ class TransformerLM(LanguageModel):
         if "layer0" in p:
             x = self._layer_call(self._block, p["layer0"], x, "global",
                                  positions)
-        for kind, pi in self._layers(p):
+        gsize = len(self.cfg.layer_pattern)
+        for i, (kind, pi) in enumerate(self._layers(p)):
             x = self._layer_call(self._block, pi, x, kind, positions)
+            if (i + 1) % gsize == 0:  # the end of a scanned group
+                x = sp_constrain(x, self.mesh, self.sp, self.rules)
         x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)
         return self._unembed(p, x)
 
@@ -175,6 +220,7 @@ class TransformerLM(LanguageModel):
                     pos: int):
         """tokens [B, 1], pos an int -> (float32 logits [B, 1, V], cache);
         the cache is updated in place and returned."""
+        self._no_mesh("decode_step")
         p = self.params.tree()
         gsize = len(self.cfg.layer_pattern)
         x = self._embed(p, tokens)

@@ -17,9 +17,13 @@ The parameters keep the reference's tree (``embedding``, ``enc_norm``,
 computes in the dtype of what it is given, as JAX's promotion does: the
 encoder in the frames' dtype, the decoder in the embedding's, and the
 cross keys and values in the wider of the memory's and the decoder's.
-``remat`` recomputes each encoder and decoder layer in the backward;
-``mesh``, ``sp``, ``rules`` and the sharding specs wait for the sharding
-slice.
+``remat`` recomputes each encoder and decoder layer in the backward.  On
+a ``mesh`` the parameters are DTensors placed per `param_pspecs`, the
+frames (the global batch's) and the sinusoid tables join the activations
+as DTensors, and the blocks carry the reference's anchors
+(`sp_boundary` around attention, cross-attention and the MLPs,
+`sp_constrain` after each decoder layer); `cache_specs` gives the decode
+cache's specs, though decode itself runs without a mesh.
 """
 
 from __future__ import annotations
@@ -30,14 +34,16 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..obs.profiler import named_scope
+from ..parallel.sharding import (DEFAULT_RULES, AxisRules, is_dtensor,
+                                 replicate_like, spec_for)
 from . import attention as attn
 from . import mlp as ffn
-from .common import (LanguageModel, ParamDef, embed_lookup, rms_norm,
-                     stack_defs, tree_map)
+from .common import (LanguageModel, ParamDef, embed_lookup, mesh_forward,
+                     rms_norm, sp_constrain, stack_defs, tree_map)
 from .config import ModelConfig
 from .rope import default_positions
 
-__all__ = ["WhisperModel", "defs"]
+__all__ = ["WhisperModel", "defs", "cache_specs"]
 
 
 def _sinusoid(seq: int, dim: int, dtype: torch.dtype, device,
@@ -101,21 +107,45 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_seq: int,
+                rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+    """Specs of `WhisperModel.init_cache`'s tree (the reference's
+    ``cache_pspecs``), allocating nothing."""
+    rules = rules or DEFAULT_RULES
+    L = cfg.num_layers
+    la = attn.cache_logical_axes()
+    shapes = {"k": (L, batch, cfg.num_kv_heads, max_seq, cfg.head_dim),
+              "v": (L, batch, cfg.num_kv_heads, max_seq, cfg.head_dim),
+              "slot_pos": (L, max_seq)}
+    return {"self": {k: spec_for(shapes[k], ("layers",) + la[k], mesh, rules)
+                     for k in shapes},
+            "memory": spec_for((batch, cfg.encoder_frames, cfg.d_model),
+                               ("batch", None, "embed"), mesh, rules)}
+
+
 class WhisperModel(LanguageModel):
     """The encoder-decoder with `params`, a tree of `defs(cfg)`'s shapes
     (from `common.init_params` or `convert.params_from_reference`)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 remat: str = "full"):
-        super().__init__(cfg, params, defs(cfg), remat)
+                 remat: str = "full", *, mesh=None, sp: bool = False,
+                 rules: Optional[AxisRules] = None):
+        super().__init__(cfg, params, defs(cfg), remat, mesh=mesh, sp=sp,
+                         rules=rules)
+
+    def cache_pspecs(self, mesh, batch: int, max_seq: int,
+                     rules: Optional[AxisRules] = None) -> Dict[str, Any]:
+        return cache_specs(self.cfg, mesh, batch, max_seq, rules)
 
     # -- encoder ---------------------------------------------------------
     def _encode(self, p, frames: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b, f, _ = frames.shape
         with named_scope("whisper.encode"):
-            x = frames + _sinusoid(f, cfg.d_model, frames.dtype,
-                                   frames.device)[None]
+            if self.mesh is not None:
+                frames = replicate_like(frames, p["embedding"])
+            x = frames + replicate_like(_sinusoid(f, cfg.d_model, frames.dtype,
+                                                  frames.device)[None], frames)
             positions = default_positions(b, f, device=frames.device)
             for i in range(cfg.encoder_layers):
                 x = self._layer_call(self._enc_block, _layer(p["encoder"], i),
@@ -124,11 +154,13 @@ class WhisperModel(LanguageModel):
 
     def _enc_block(self, lp, x: torch.Tensor, positions) -> torch.Tensor:
         cfg = self.cfg
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attn.attn_apply(lp["attn"], h, cfg, positions, causal=False)
+        h = self._boundary(rms_norm(x, lp["ln1"], cfg.norm_eps))
+        x = x + self._boundary(attn.attn_apply(lp["attn"], h, cfg, positions,
+                                               causal=False, rules=self.rules))
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + ffn.mlp_apply(lp["mlp"], h, cfg)
+        return x + self._boundary(ffn.mlp_apply(lp["mlp"], h, cfg))
 
+    @mesh_forward
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames [B, F, d] (precomputed conv-frontend embeddings) ->
         memory [B, F, d] in the frames' dtype (under the caller's grad
@@ -142,11 +174,21 @@ class WhisperModel(LanguageModel):
         dt = x.dtype
         mt = torch.promote_types(memory.dtype, dt)
         with named_scope("whisper.cross"):
-            q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
-            k = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
-                             p["wk"].to(dt).to(mt))
-            v = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
-                             p["wv"].to(dt).to(mt))
+            if is_dtensor(x):
+                sq, sk = attn.qkv_specs(x.shape[0], x.shape[1], cfg.num_heads,
+                                        cfg.num_kv_heads, cfg.head_dim,
+                                        x.device_mesh, self.rules)
+                q = attn.project_heads(x, p["wq"].to(dt), sq)
+                k = attn.project_heads(memory.to(mt), p["wk"].to(dt).to(mt),
+                                       sk)
+                v = attn.project_heads(memory.to(mt), p["wv"].to(dt).to(mt),
+                                       sk)
+            else:
+                q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
+                k = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
+                                 p["wk"].to(dt).to(mt))
+                v = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
+                                 p["wv"].to(dt).to(mt))
             logits = torch.einsum("bhsk,bhfk->bhsf",
                                   q.float() * cfg.head_dim ** -0.5, k.float())
             w = torch.softmax(logits, dim=-1)
@@ -158,20 +200,23 @@ class WhisperModel(LanguageModel):
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if cache is None:
-            a = attn.attn_apply(p["attn"], h, cfg, positions)
+            a = attn.attn_apply(p["attn"], self._boundary(h), cfg, positions,
+                                rules=self.rules)
         else:
             a, _ = attn.attn_decode(p["attn"], h, cfg, cache, pos)
-        x = x + a
-        x = x + self._cross_apply(p["cross"], rms_norm(x, p["lnx"],
-                                                       cfg.norm_eps), memory)
+        x = x + self._boundary(a)
+        c = self._cross_apply(p["cross"], rms_norm(x, p["lnx"], cfg.norm_eps),
+                              memory)
+        x = x + self._boundary(c)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + ffn.mlp_apply(p["mlp"], h, cfg)
+        return x + self._boundary(ffn.mlp_apply(p["mlp"], h, cfg))
 
     def _logits(self, p, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, p["dec_norm"], self.cfg.norm_eps)
         return self._unembed(p, x, tied=True)
 
     # -- decoder forward (teacher forcing) -------------------------------
+    @mesh_forward
     def forward(self, tokens: torch.Tensor,
                 frames: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -185,11 +230,13 @@ class WhisperModel(LanguageModel):
         b, s = tokens.shape
         if positions is None:
             positions = default_positions(b, s, device=tokens.device)
-        x = embed_lookup(p["embedding"], tokens)
-        x = x + _sinusoid(s, self.cfg.d_model, x.dtype, x.device)[None]
+        x = embed_lookup(p["embedding"], tokens, self.mesh, self.rules)
+        x = x + replicate_like(_sinusoid(s, self.cfg.d_model, x.dtype,
+                                         x.device)[None], x)
         for i in range(self.cfg.num_layers):
             x = self._layer_call(self._dec_block, _layer(p["decoder"], i), x,
                                  memory, positions)
+            x = sp_constrain(x, self.mesh, self.sp, self.rules)
         return self._logits(p, x)
 
     # -- decode ----------------------------------------------------------
@@ -217,6 +264,7 @@ class WhisperModel(LanguageModel):
                     pos: int):
         """tokens [B, 1], pos an int -> (float32 logits [B, 1, V], cache);
         the self-attention cache is updated in place and returned."""
+        self._no_mesh("decode_step")
         p = self.params.tree()
         x = embed_lookup(p["embedding"], tokens)
         x = x + _sinusoid(1, self.cfg.d_model, x.dtype, x.device,

@@ -12,7 +12,15 @@ bits viewed as int16, no ml_dtypes); `restore` reads the manifest's dtype
 and views such a leaf's bits as bfloat16 again.  Writes commit by an
 atomic rename, so `latest_step` never sees a partial one; `save_async`
 copies the state to the host at once and writes it in a background
-thread.  Restoring onto another mesh waits for the sharding slice.
+thread.
+
+On a mesh, `save` gathers each DTensor leaf (``full_tensor``: every rank
+takes part) and rank 0 of the world writes the same bytes a meshless
+state would give; the other ranks wait for the commit.  `restore` with
+``shardings`` (a tree of ``(mesh, placements)``,
+`parallel.sharding.tree_specs_to_shardings`) places each leaf on its
+mesh, so a checkpoint written on one mesh restores onto any other, or
+onto none.
 """
 
 from __future__ import annotations
@@ -25,15 +33,24 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.common import tree_from_items, tree_items
+from ..parallel.sharding import is_dtensor
 
 __all__ = ["save", "save_async", "restore", "latest_step", "wait_pending"]
 
 _pending: list = []
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:  # its bits, as the reference's '<V2'
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -53,6 +70,8 @@ def _snapshot(state) -> Dict[str, tuple]:
 def _write(host: Dict[str, tuple], ckpt_dir: str, step: int) -> str:
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
+    if _rank() != 0:  # one writer
+        return final
     os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "arrays.npz"),
              **{k: a for k, (a, _) in host.items()})
@@ -68,9 +87,13 @@ def _write(host: Dict[str, tuple], ckpt_dir: str, step: int) -> str:
 
 
 def save(state, ckpt_dir: str, step: int) -> str:
-    """Write `state` (a tree of tensors) as step `step`; returns its
-    directory."""
-    return _write(_snapshot(state), ckpt_dir, step)
+    """Write `state` (a tree of tensors, DTensors among them on a mesh) as
+    step `step`; returns its directory.  In a process group every rank
+    calls it, and it returns once rank 0 has committed."""
+    final = _write(_snapshot(state), ckpt_dir, step)
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+    return final
 
 
 def save_async(state, ckpt_dir: str, step: int) -> threading.Thread:
@@ -108,17 +131,31 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore(template, ckpt_dir: str, step: int,
-            device: Union[str, torch.device, None] = None):
+            device: Union[str, torch.device, None] = None, shardings=None):
     """Restore into the structure of `template` (a tree of tensors): each
     leaf in the template leaf's dtype, on `device` (default: the template
-    leaf's; pass one for a template on the meta device)."""
+    leaf's; pass one for a template on the meta device).  `shardings`, a
+    matching tree of ``(mesh, placements)``, places each leaf on its mesh
+    (this rank's shard of it, on the mesh's device); without it the
+    leaves are plain tensors."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         keys = json.load(f)["keys"]
+    flat_s = dict(tree_items(shardings)) if shardings is not None else None
     items = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for p, leaf in tree_items(template):
             key = "/".join(p)
             t = _tensor(data[key], keys[key]["dtype"])
-            items.append((p, t.to(device or leaf.device, leaf.dtype)))
+            if flat_s is None:
+                items.append((p, t.to(device or leaf.device, leaf.dtype)))
+                continue
+            from torch.distributed.tensor import distribute_tensor
+
+            mesh, places = flat_s[p]
+            dev = device or (torch.device("cuda", torch.cuda.current_device())
+                             if mesh.device_type == "cuda" else "cpu")
+            items.append((p, distribute_tensor(t.to(dev, leaf.dtype), mesh,
+                                               places, src_data_rank=None)))
     return tree_from_items(items)
+

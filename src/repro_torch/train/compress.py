@@ -3,10 +3,11 @@
 The JAX package's ``train/compress.py``: gradients are quantized to int8
 with a per-tensor scale and dequantized, and the quantization residual is
 carried to the next step (error feedback; Karimireddy et al., "Error
-Feedback Fixes SignSGD", 2019).  Under the sharding slice the pair
-brackets the data-parallel all-reduce (4x fewer bytes than float32); on
-one card it changes the update as it would there.  Off by default;
-enabled with ``--compress int8``.
+Feedback Fixes SignSGD", 2019).  On a mesh the pair runs on the
+gradients as the step lays them out (DTensors), after their reduction,
+as the reference's runs after GSPMD's: in both it changes the update,
+not the bytes a collective moves.  Off by default; enabled with
+``--compress int8``.
 """
 
 from __future__ import annotations

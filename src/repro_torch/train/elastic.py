@@ -1,6 +1,10 @@
-"""Straggler mitigation and fault injection.
+"""Elastic scaling + straggler mitigation.
 
-The JAX package's ``train/elastic.py``, host-side and framework-free:
+The JAX package's ``train/elastic.py``:
+
+* `reshard_state`: move a train state onto a different mesh (grow/shrink
+  data parallelism): each leaf laid out per its spec on the new mesh;
+  combined with `checkpoint.restore` this is scale-up/scale-down restart.
 
 * `StragglerDetector`: per-step wall-time tracker; flags steps whose
   duration exceeds median * threshold and recommends an action (the
@@ -8,9 +12,6 @@ The JAX package's ``train/elastic.py``, host-side and framework-free:
   <= 2 hops from all survivors -- see fabric/placement.remap_failed).
 * `FailureInjector`: deterministic fault hook for tests/demos (kill the
   process at step N, or corrupt a device's step time).
-
-``reshard_state`` (moving a train state onto another mesh) waits for the
-sharding slice, which it needs.
 """
 
 from __future__ import annotations
@@ -20,7 +21,24 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, List, Optional
 
-__all__ = ["StragglerDetector", "FailureInjector"]
+from ..models.common import tree_map
+from ..parallel.sharding import constrain, is_dtensor
+
+__all__ = ["reshard_state", "StragglerDetector", "FailureInjector"]
+
+
+def reshard_state(state, pspec_tree, new_mesh):
+    """Every leaf of `state` laid out on `new_mesh` per the spec tree: a
+    DTensor on `new_mesh` is redistributed, one on another mesh gathered
+    first (``full_tensor``: every rank of its mesh takes part), and a plain
+    tensor -- the global value, the same on every rank -- keeps this
+    rank's shard."""
+    def one(x, spec):
+        if is_dtensor(x) and x.device_mesh != new_mesh:
+            x = x.full_tensor()
+        return constrain(x, new_mesh, spec)
+
+    return tree_map(one, state, pspec_tree)
 
 
 @dataclass

@@ -3,7 +3,8 @@
 The JAX package's ``train/losses.py``.  `model_loss` runs the model's
 ``forward`` with the given parameter tree in place of its own frozen
 parameters (``torch.func.functional_call`` over the `ParamTree` names,
-which follow the JAX tree), so the tree's leaves get the gradients.
+which follow the JAX tree), so the tree's leaves get the gradients.  On
+a mesh the logits are a DTensor and the targets the global batch's.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch.func import functional_call
 
 from ..models.common import tree_items
+from ..parallel.sharding import is_dtensor, replicate_like
 
 __all__ = ["cross_entropy", "model_loss", "named_params"]
 
@@ -27,13 +29,47 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     one card it is a gather here: the contraction adds V - 1 exact zeros
     to the label's logit, so the two give the same bits, and the gather
     neither builds the [B, S, V] one-hot nor reads the logits a second
-    time."""
+    time.  On a mesh the logits are a DTensor (`_label_logits`)."""
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, targets.long()[..., None])[..., 0]
+    ll = _label_logits(logits, targets.long())
     nll = (lse - ll).mean()
     if z_loss:
         nll = nll + z_loss * lse.square().mean()
     return nll
+
+
+def _label_logits(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., targets]``.  For a DTensor (the global targets, the
+    same on every rank) under ``local_map``: each rank gathers the labels
+    that fall in its vocab columns (0 elsewhere) and the picks are summed
+    over the mesh dims that shard the vocab -- one nonzero term, so the
+    gather's value."""
+    if not is_dtensor(logits):
+        return logits.gather(-1, targets[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, v = logits.device_mesh, logits.shape[-1]
+    vocab = [isinstance(p, Shard) and p.dim % logits.dim() == logits.dim() - 1
+             for p in logits.placements]
+    start = DTensor.from_local(torch.arange(v, device=targets.device), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+    start = start.redistribute(mesh, [Shard(0) if s else Replicate()
+                                      for s in vocab])
+
+    def pick(lg, tg, cols):
+        idx = tg - cols[0]
+        hit = (idx >= 0) & (idx < lg.shape[-1])
+        got = lg.gather(-1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(hit, got, torch.zeros_like(got))
+
+    rows = [Replicate() if s else p for s, p in zip(vocab, logits.placements)]
+    return local_map(pick, out_placements=[Partial() if s else p for s, p
+                                           in zip(vocab, rows)],
+                     in_placements=(logits.placements, rows, start.placements),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, replicate_like(targets, logits), start)
 
 
 def named_params(params: Any) -> Dict[str, torch.Tensor]:

@@ -8,8 +8,14 @@ functional: it returns new parameters and a new state and modifies
 neither input (a donated, in-place update is later work).  Everything it
 computes stays on the parameters' device, metrics included: a step reads
 nothing back on the host.  The global gradient norm sums the leaves in
-the reference's order (``jax.tree.flatten`` sorts dict keys).  The
-moments' sharding specs (``state_pspecs``) wait for the sharding slice.
+the reference's order (``jax.tree.flatten`` sorts dict keys).
+
+On a mesh the parameters, gradients and moments are DTensors: AdamW's
+moments are made like their parameters (``zeros_like``) and shard as
+they do (``state_pspecs``); Adafactor's factored moments have specs of
+their own (``state_pspecs``) and are placed by
+``train.elastic.reshard_state``.  `global_norm` sums each DTensor leaf's
+squares over its shards first.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..models.common import tree_items, tree_map
+from ..parallel.sharding import P, is_dtensor
 
 __all__ = ["AdamW", "Adafactor", "cosine_schedule", "global_norm"]
 
@@ -41,10 +48,18 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """A leaf's sum of squares; a DTensor's reduced across its shards
+    (a plain tensor, the same on every rank)."""
+    sq = torch.sum(g * g)
+    return sq.full_tensor() if is_dtensor(sq) else sq
+
+
 def global_norm(grads: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, float32, the leaves
-    summed in the JAX tree order."""
-    return torch.sqrt(sum(torch.sum(g * g) for _, g in tree_items(grads)))
+    summed in the JAX tree order (a DTensor leaf's own sum runs over its
+    shards in another order: the same bits only on a mesh of one)."""
+    return torch.sqrt(sum(_sum_squares(g) for _, g in tree_items(grads)))
 
 
 def _learning_rate(lr, count: torch.Tensor) -> torch.Tensor:
@@ -73,8 +88,8 @@ class AdamW:
 
     def init(self, params) -> Dict[str, Any]:
         sd = self._sd()
-        zeros = lambda p: torch.zeros(p.shape, dtype=sd,  # noqa: E731
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(  # noqa: E731
+            p, dtype=sd, memory_format=torch.contiguous_format)
         device = tree_items(params)[0][1].device
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "count": torch.zeros((), dtype=torch.int32, device=device)}
@@ -107,6 +122,10 @@ class AdamW:
             tree_map(upd, params, gf, state["mu"], state["nu"]), 3)
         new_state = {"mu": new_mu, "nu": new_nu, "count": count}
         return new_p, new_state, {"grad_norm": gnorm, "lr": lr}
+
+    def state_pspecs(self, param_pspecs, params_template=None):
+        """Moments shard exactly like their parameters."""
+        return {"mu": param_pspecs, "nu": param_pspecs, "count": P()}
 
 
 @dataclass(frozen=True)
@@ -174,3 +193,25 @@ class Adafactor:
             tree_map(upd, params, gf, state["vr"], state["vc"]), 3)
         return (new_p, {"vr": new_vr, "vc": new_vc, "count": count},
                 {"grad_norm": gnorm, "lr": lr})
+
+    def state_pspecs(self, param_pspecs, params_template=None):
+        """Specs of the state: a factored leaf's ``vr`` drops its
+        parameter's last dim and ``vc`` its second last; an unfactored
+        leaf's ``vr`` (shape (1,)) is replicated and its ``vc`` shards like
+        the parameter.  Needs `params_template` (tensors, meta tensors or
+        anything with a ``shape``) to know which leaves are factored."""
+        if params_template is None:
+            raise ValueError("Adafactor specs need the parameters' shapes "
+                             "(params_template)")
+
+        def vr_spec(spec, p):
+            return P(*spec[:-1]) if self._factored(p.shape) else P()
+
+        def vc_spec(spec, p):
+            if self._factored(p.shape):
+                return P(*(tuple(spec[:-2]) + tuple(spec[-1:])))
+            return spec
+
+        return {"vr": tree_map(vr_spec, param_pspecs, params_template),
+                "vc": tree_map(vc_spec, param_pspecs, params_template),
+                "count": P()}

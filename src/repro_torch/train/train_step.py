@@ -13,8 +13,15 @@ runs the flash-attention kernels forward and backward
 runs again in the backward.  The metrics stay on the device.
 
 The step carries three ``torch.profiler`` labels: "train.forward",
-"train.backward" and "train.optimizer".  ``param_specs`` / ``mesh`` (the
-reference's sharding constraints) wait for the sharding slice.
+"train.backward" and "train.optimizer".
+
+On a mesh the state's leaves are DTensors (placed by `train.elastic.
+reshard_state`), the model is built with the same mesh, and the batch is
+the global one, the same on every rank.  With ``param_specs`` and
+``mesh`` the gradient tree, and the microbatch accumulation carry, are
+redistributed to the parameters' placements (the reference's sharding
+constraints: a gradient that propagation left replicated or partial is
+reduce-scattered to its parameter's shards).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch.func import functional_call
 
 from ..models.common import tree_from_items, tree_items, tree_map
 from ..obs.profiler import named_scope
+from ..parallel.sharding import constrain, is_dtensor
 from .compress import compress_decompress
 from .losses import model_loss, named_params
 
@@ -48,9 +56,9 @@ def init_state(model, opt) -> Dict[str, Any]:
 
 def value_and_grad(model, params: Any, batch: Dict[str, Any],
                    z_loss: float = 0.0):
-    """(loss, grads) of `model_loss` at `params`: the loss detached, the
-    gradient a tree of `params`' structure and dtypes (zeros where a leaf
-    takes no part)."""
+    """(loss, grads) of `model_loss` at `params`: the loss detached (a
+    plain tensor, on a mesh too), the gradient a tree of `params`'
+    structure and dtypes (zeros where a leaf takes no part)."""
     items = tree_items(params)
     leaves = [leaf.detach().requires_grad_(True) for _, leaf in items]
     tree = tree_from_items((path, leaf) for (path, _), leaf
@@ -61,7 +69,10 @@ def value_and_grad(model, params: Any, batch: Dict[str, Any],
         with named_scope("train.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
-    return loss.detach(), tree_from_items(
+    loss = loss.detach()
+    if is_dtensor(loss):  # reduced over the shards if still partial
+        loss = loss.full_tensor()
+    return loss, tree_from_items(
         (path, g) for (path, _), g in zip(items, grads))
 
 
@@ -78,28 +89,42 @@ def _split_microbatches(batch: Dict[str, Any], n: int):
 def make_train_step(model, opt, num_microbatches: int = 1,
                     z_loss: float = 0.0,
                     accum_dtype: str = "float32",
+                    param_specs=None, mesh=None,
                     compress: Optional[str] = None) -> Callable:
     """compress: None | 'int8' (error-feedback quantized gradients).
     accum_dtype: gradient-accumulation buffer dtype ('bfloat16' halves the
     accumulation memory), used when `num_microbatches` > 1: the
     microbatches' gradients are summed in it, in order, and divided by
-    their number, as the reference's scan does."""
+    their number, as the reference's scan does.
+    param_specs/mesh: when both are given, every gradient (and the
+    accumulation carry) is laid out as its parameter's spec on `mesh`."""
     adt = _ACCUM_DTYPES[accum_dtype]
     if compress not in (None, "int8"):
         raise ValueError(f"compress must be None or 'int8', got {compress!r}")
+
+    if param_specs is not None and mesh is not None:
+        def lay_out(grads):
+            return tree_map(lambda g, s: constrain(g, mesh, s), grads,
+                            param_specs)
+    else:
+        def lay_out(grads):
+            return grads
 
     def train_step(state, batch):
         params = state["params"]
         if num_microbatches == 1:
             loss, grads = value_and_grad(model, params, batch, z_loss)
+            grads = lay_out(grads)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                   device=p.device), params)
+            grads = lay_out(tree_map(lambda p: torch.zeros_like(
+                p, dtype=adt, memory_format=torch.contiguous_format),
+                params))
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for mb in _split_microbatches(batch, num_microbatches):
                 lm, gm = value_and_grad(model, params, mb, z_loss)
-                grads = tree_map(lambda a, g: a + g.to(adt), grads, gm)
+                grads = lay_out(tree_map(lambda a, g: a + g.to(adt), grads,
+                                         lay_out(gm)))
                 loss = loss + lm
             loss = loss / num_microbatches
             grads = tree_map(lambda g: g / num_microbatches, grads)

@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 71 else 0)
+sys.exit(1 if bad or missing or len(names) < 74 else 0)
 """ % (sorted([
     # the analysis slice: the §IX APSP and §IV-D routing-table entry
     # points, their kernels' wrappers, the structural metrics and the
@@ -79,6 +79,10 @@ sys.exit(1 if bad or missing or len(names) < 71 else 0)
     "repro_torch.train.optimizer",
     "repro_torch.train.train_step",
     "repro_torch.launch.train",
+    # the sharding slice: rules and DTensor placements, GPipe, meshes
+    "repro_torch.parallel.sharding",
+    "repro_torch.parallel.pipeline",
+    "repro_torch.launch.mesh",
 ]),)
 
 

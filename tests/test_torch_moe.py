@@ -198,7 +198,7 @@ def test_index_dispatch_matches_onehot_translation(over):
     assert torch.equal(xe, want)
     assert int((row < xe.shape[0] * xe.shape[1]).sum()) == int(r.within.sum())
     assert ngroups == 3
-    out = mlp._moe_local(p, x, cfg, capacity)
+    out = mlp._moe_local(p, x, cfg, 0, cfg.experts_padded, capacity)
     np.testing.assert_allclose(out.numpy(), out_ref.numpy(), rtol=1e-6,
                                atol=1e-6)
 
