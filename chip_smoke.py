@@ -17,8 +17,10 @@ routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
 Griffin hybrid (recurrentgemma-9b), the SSM (falcon-mamba-7b) and the
 encoder-decoder (whisper-base), each at its full published width, and
 the training path (qwen2-0.5b at its full width, through the
-tensor-core flash-attention backward kernel), and the sharded path (the
-same training and the deepseek-moe-16b prefill on a (1, 1) DeviceMesh).  Each path's kernel counts are set to
+tensor-core flash-attention backward kernel), the sharded path (the
+same training and the deepseek-moe-16b prefill on a (1, 1) DeviceMesh),
+and the launch tools' cells on one card (qwen2-0.5b's decode_32k and
+train_4k at their planned memory).  Each path's kernel counts are set to
 0 just before it and read just after.  Phases, one JSON line each
 (``python3 chip_smoke.py train`` runs the named phases alone, a
 development run that then fails for the kernels it did not launch):
@@ -225,6 +227,28 @@ development run that then fails for the kernels it did not launch):
              sm90 launches, both walls after a warm-up at the same shape.
              `parallel.pipeline.gpipe` has no card check: one card is one
              stage (its CPU test runs 4 gloo ranks)
+  launch     the launch tools on one card (`launch.cells`, `roofline`,
+             `cost`, `dryrun`, `memdebug`): the card's name and power
+             limit, a measured bf16 GEMM rate (8192^3 `torch.matmul`) and
+             device-to-device copy rate (4 GiB) beside `roofline.H100_SXM`;
+             decode on a (1, 1) mesh (qwen2-0.5b and deepseek-moe-16b at
+             full width, 2 layers, 8 steps) bit for bit the meshless
+             decode's; qwen2-0.5b's `decode_32k` cell (B = 128, a 32,768-slot
+             bf16 KV cache) planned by `plan_cell` at the card's memory on a
+             (1, 1) `MeshShape`, one warm and one timed `decode_step`: the
+             plan's estimate beside `max_memory_allocated` and the step's
+             wall; its `train_4k` cell (256 sequences of 4096, 1,048,576
+             tokens) at the plan's microbatching (the planner's candidates
+             stop at 32, so 256 microbatches of one sequence): one whole
+             step under `launch.cost`'s trace, 2 * 24 * 256 sm90 and 24 *
+             256 tensor-core backward launches, the estimate beside the
+             peak, the step's per-device FLOPs equal to the dry run's for
+             the same cell on a world of one (`dryrun --mesh one`, meta
+             tensors on the CPU, in a subprocess beside the card's work),
+             `roofline`'s step_bound_s on the datasheet rates beside the
+             wall; and memdebug's card mode: the 10 largest blocks live at
+             the peak of a step of 8 sequences at the same microbatch
+             size, under `torch.cuda.memory._record_memory_history`
 
 The kernels phase also holds both flash-attention kernels against their
 plain version: the sm90 tensor-core kernel (csrc/flash_attention_sm90.cu,
@@ -371,6 +395,15 @@ FLASH_BWD_ATOL = {"float32": 1e-7, "bfloat16": 0.0}
 # GEMM where the gather's backward adds rows), the EP prefill's model
 SHARDED = {"steps": 3, "loss_rel": 1e-6, "leaf_of_max": 1e-5,
            "moe_arch": "deepseek-moe-16b"}
+# the launch tools' cells on one card: qwen2-0.5b (the reference dry run
+# test's arch) at decode_32k and train_4k; the card's GEMM (n^3 bf16) and
+# copy rates; decode on a (1, 1) mesh at 2 layers; memdebug's step at the
+# train cell's microbatch size (one sequence) over 8 sequences
+LAUNCH = {"arch": "qwen2-0.5b", "gemm_n": 8192, "copy_bytes": 4 << 30,
+          "mesh_decode": {"archs": ["qwen2-0.5b", "deepseek-moe-16b"],
+                          "layers": 2, "batch": 4, "max_seq": 64,
+                          "steps": 8},
+          "memdebug_batch": 8, "top": 10}
 
 
 def emit(obj):
@@ -3009,6 +3042,217 @@ def phase_sharded(torch, state):
     return out
 
 
+def mesh_decode_check(torch):
+    """Decode on a (1, 1) mesh against the meshless decode: each arch of
+    LAUNCH["mesh_decode"] at full width and 2 layers, bf16, one model's
+    parameters, `steps` steps on a cache laid out per `cache_pspecs`;
+    every step's logits bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.api import model_parts
+
+    c = LAUNCH["mesh_decode"]
+    store = world_of_one(torch)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for arch in c["archs"]:
+            cfg = get_config(arch).with_(num_layers=c["layers"])
+            plain = build_model(cfg, device="cuda", seed=5)
+            meshed = model_parts(cfg)[1](cfg, plain.params.tree(), mesh=mesh)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            tok = torch.randint(0, cfg.vocab_size, (c["batch"], c["steps"]),
+                                generator=gen, device="cuda")
+            c0 = plain.init_cache(c["batch"], c["max_seq"])
+            c1 = meshed.init_cache(c["batch"], c["max_seq"])
+            same = []
+            for t in range(c["steps"]):
+                a, c0 = plain.decode_step(c0, tok[:, t:t + 1], t)
+                b, c1 = meshed.decode_step(c1, tok[:, t:t + 1], t)
+                same.append(bool(torch.equal(a, b.to_local())))
+            out[arch] = {"steps": c["steps"], "bit_identical": all(same),
+                         "cache_dtensor": type(c1["p0"]["k"]).__name__}
+            del plain, meshed, c0, c1
+            torch.cuda.empty_cache()
+    finally:
+        end_world(store)
+    return out
+
+
+def gemm_and_copy_rates(torch):
+    """The card's measured bf16 GEMM rate (n^3 `torch.matmul`) and
+    device-to-device copy rate (read + write bytes a second), CUDA events,
+    median of 30."""
+    n = LAUNCH["gemm_n"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((n, n), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    b = torch.randn((n, n), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    ms_gemm = gpu_ms(torch, lambda: torch.matmul(a, b))
+    del a, b
+    src = torch.empty(LAUNCH["copy_bytes"], dtype=torch.uint8,
+                      device="cuda")
+    dst = torch.empty_like(src)
+    ms_copy = gpu_ms(torch, lambda: dst.copy_(src))
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"gemm_n": n, "gemm_ms": ms_gemm,
+            "gemm_flops_per_s": 2.0 * n ** 3 / (ms_gemm / 1e3),
+            "copy_bytes": LAUNCH["copy_bytes"], "copy_ms": ms_copy,
+            "copy_bytes_per_s": 2.0 * LAUNCH["copy_bytes"] / (ms_copy / 1e3)}
+
+
+def phase_launch(torch, state):
+    """The launch tools on one card (module docstring, ``launch``)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import H100_SXM, roofline_terms
+
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    arch = LAUNCH["arch"]
+    hbm = dryrun.hbm_bytes(None)
+    # the same cell on a world of one, traced on meta tensors on the CPU
+    # (the card hidden from it), beside the card's work
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "one",
+         "--arch", arch, "--shape", "train_4k", "--hbm-gb", repr(hbm / 1e9),
+         "--out", out_dir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        out = {"card": torch.cuda.get_device_name(0),
+               "nvidia_smi": nvidia_smi(), "hbm_bytes": hbm,
+               "h100_sxm_datasheet": {"peak_flops": H100_SXM.peak_flops,
+                                      "hbm_bw": H100_SXM.hbm_bw}}
+        out["rates"] = rates = gemm_and_copy_rates(torch)
+        rates["gemm_of_datasheet"] = rates["gemm_flops_per_s"] \
+            / H100_SXM.peak_flops
+        rates["copy_of_datasheet"] = rates["copy_bytes_per_s"] \
+            / H100_SXM.hbm_bw
+        md = mesh_decode_check(torch)
+        out["mesh_decode"] = md
+        check(all(r["bit_identical"] and r["cache_dtensor"] == "DTensor"
+                  for r in md.values()), f"mesh decode differs: {md}")
+
+        # decode_32k: B = 128 over a 32,768-slot KV cache
+        reset_flash_counts(ops)
+        dec = dryrun.card_step(arch, "decode_32k", repeat=2)
+        logits = dec.pop("out")[0]
+        out["decode_32k"] = {
+            "plan": dec["plan"], "est_bytes": dec["plan"]["est_bytes_per_chip"],
+            "max_memory_allocated": dec["max_memory_allocated"],
+            "peak_of_est": dec["max_memory_allocated"]
+            / dec["plan"]["est_bytes_per_chip"],
+            "step_wall_s": dec["wall_s"], "cost": dec["cost"],
+            "flash_launches": dec["launches"],
+            "logits_shape": list(logits.shape),
+            "logits_finite": check(bool(torch.isfinite(logits).all()),
+                                   "decode_32k logits not finite"),
+            "shape_ok": check(list(logits.shape) == [128, 1, 151936],
+                              f"decode logits {list(logits.shape)}")}
+        del dec, logits
+        torch.cuda.empty_cache()
+
+        # train_4k: one whole step at the plan's microbatching
+        reset_flash_counts(ops)
+        tr = dryrun.card_step(arch, "train_4k")
+        metrics = tr.pop("out")[1]
+        mb = tr["plan"]["num_microbatches"]
+        layers = 24
+        want = {"sm90": 2 * layers * mb, "simt": 0, "bwd": 0,
+                "bwd_sm90": layers * mb}
+        loss = float(metrics["loss"])
+        tokens = 256 * 4096
+        bound = roofline_terms(tr["cost"]["dot_flops"],
+                               tr["cost"]["dot_bytes_flash"], 0.0, 1,
+                               tr["model_flops"], H100_SXM)
+        out["train_4k"] = t4 = {
+            "plan": tr["plan"], "microbatches": mb, "tokens": tokens,
+            "wall_s": tr["wall_s"], "tokens_per_s": tokens / tr["wall_s"],
+            "wall_note": "one step under launch.cost's trace",
+            "loss": loss, "loss_finite": check(np.isfinite(loss),
+                                               f"train_4k loss {loss}"),
+            "est_bytes": tr["plan"]["est_bytes_per_chip"],
+            "max_memory_allocated": tr["max_memory_allocated"],
+            "peak_of_est": tr["max_memory_allocated"]
+            / tr["plan"]["est_bytes_per_chip"],
+            "cost": tr["cost"], "model_flops": tr["model_flops"],
+            "roofline_h100_sxm": bound,
+            "wall_of_step_bound": tr["wall_s"] / bound["step_bound_s"],
+            "flash_launches": tr["launches"],
+            "launches_ok": check(tr["launches"] == want,
+                                 f"train_4k launches {tr['launches']}, not "
+                                 f"{want}")}
+        state.setdefault("flash_sm90_launches_by_path", {})[
+            f"{arch} train_4k (launch)"] = tr["launches"]["sm90"]
+        state.setdefault("flash_bwd_sm90_launches_by_path", {})[
+            f"{arch} train_4k (launch)"] = tr["launches"]["bwd_sm90"]
+        del tr, metrics
+        torch.cuda.empty_cache()
+
+        # memdebug's card mode at the train cell's microbatch size
+        n = LAUNCH["memdebug_batch"]
+        md = dryrun.card_step(arch, "train_4k", memory_history=True,
+                              top=LAUNCH["top"], batch=n,
+                              extra={"num_microbatches": n})
+        md.pop("out")
+        out["memdebug_card"] = {
+            "batch": n, "microbatches": n,
+            "peak_bytes_recorded": md["peak_bytes"],
+            "max_memory_allocated": md["max_memory_allocated"],
+            "top": [{"bytes": s, "address": a, "where": w}
+                    for s, a, w in md["top"]]}
+        del md
+        torch.cuda.empty_cache()
+
+        # the dry run of the same cell on a world of one
+        text, _ = dry.communicate(timeout=600)
+        with open(os.path.join(out_dir,
+                               f"{arch}__train_4k__one.json")) as fh:
+            res = json.load(fh)
+        out["dryrun_one"] = {
+            "rc": dry.returncode, "ok": res.get("ok"),
+            "trace_s": res.get("trace_s"),
+            "dot_flops": res.get("cost", {}).get("dot_flops"),
+            "kernel_calls": res.get("cost", {}).get("kernel_calls"),
+            "peak_bytes_per_device": res.get("memory", {}).get(
+                "peak_bytes_per_device"),
+            "tail": text[-600:] if dry.returncode else ""}
+        t4["dot_flops_card"] = t4["cost"]["dot_flops"]
+        t4["dot_flops_dryrun_one"] = out["dryrun_one"]["dot_flops"]
+        t4["flops_equal"] = check(
+            res.get("ok") and t4["cost"]["dot_flops"]
+            == out["dryrun_one"]["dot_flops"]
+            and t4["cost"]["kernel_calls"]
+            == out["dryrun_one"]["kernel_calls"],
+            f"card FLOPs {t4['cost']['dot_flops']} "
+            f"{t4['cost']['kernel_calls']}, dry run {out['dryrun_one']}")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        import shutil
+
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if problems:
+        raise AssertionError(f"launch phase failed its checks: {problems}")
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -3038,7 +3282,8 @@ def main():
               ("ssm", phase_ssm, (torch, state)),
               ("encdec", phase_encdec, (torch, state)),
               ("train", phase_train, (torch, state)),
-              ("sharded", phase_sharded, (torch, state))]
+              ("sharded", phase_sharded, (torch, state)),
+              ("launch", phase_launch, (torch, state))]
     # `python3 chip_smoke.py train ...` runs the named phases alone (a
     # development run: the kernel line then misses the others' kernels and
     # the run fails)

@@ -45,16 +45,23 @@ autograd itself.
 A DTensor raises TypeError here, on either device: on a mesh the model
 calls `attention` on each rank's local tensors under ``local_map``.
 
+A meta tensor (the dry run, `launch.dryrun`, traces a step on the meta
+device) takes the card's route, forward and backward, and launches
+nothing: its outputs are the kernel's shapes and dtypes only, the
+kernel's shape function.
+
 `LAUNCHES` counts kernel launches (and nothing else), so a run can show
 that its path went through a kernel; `LAUNCHES_BY_KERNEL` splits the count
 by route ("sm90", "simt") and counts the backward's ("bwd_sm90", "bwd")
-apart.
+apart.  `OBSERVERS` are called ``fn(route, q, k, causal, window)`` at
+every launch and every meta call (`launch.cost` counts a kernel's FLOPs
+and bytes from its launch shapes there: a ctypes call is no aten op).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -63,11 +70,13 @@ from ...obs.profiler import named_scope
 from ...parallel.sharding import is_dtensor
 from .ref import attention_chunked, attention_ref
 
-__all__ = ["attention", "smem_bytes", "LAUNCHES", "LAUNCHES_BY_KERNEL"]
+__all__ = ["attention", "smem_bytes", "LAUNCHES", "LAUNCHES_BY_KERNEL",
+           "OBSERVERS"]
 
 LAUNCHES = 0
 LAUNCHES_BY_KERNEL: Dict[str, int] = {"sm90": 0, "simt": 0, "bwd": 0,
                                       "bwd_sm90": 0}
+OBSERVERS: List[Callable] = []
 
 _CHUNK_THRESHOLD = 4096  # the plain version goes q-block by q-block from here
 _MAX_HEAD_DIM = 256
@@ -169,7 +178,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     the model path this copies q, k and v once each; the kernel takes no
     strides."""
     t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if t.is_meta or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _observe(route: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
+             window: Optional[int]) -> None:
+    for fn in OBSERVERS:
+        fn(route, q, k, causal, window)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,7 +204,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             else attention_ref
         return plain(q, k, v, causal=causal, softcap=softcap, window=window,
                      scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     route = _route(q.dtype, q.shape[3])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -250,7 +265,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    if out.numel() == 0:
+    if q.is_meta:  # the kernel's shape function: nothing launched
+        _observe(route, q, k, causal, window)
+    if out.numel() == 0 or q.is_meta:
         return (out, lse) if with_lse else out
     scale = scale if scale is not None else d ** -0.5
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
@@ -267,6 +284,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                            f"CUDA error {err}")
     LAUNCHES += 1
     LAUNCHES_BY_KERNEL[route] += 1
+    _observe(route, q, k, causal, window)
     return (out, lse) if with_lse else out
 
 
@@ -326,6 +344,9 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    if q.is_meta:
+        _observe(route, q, k, causal, window)
+        return dq, dk, dv
     scale = scale if scale is not None else d ** -0.5
     f32 = {"dtype": torch.float32, "device": q.device}
     if route == "bwd_sm90":
@@ -352,4 +373,5 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"failed: CUDA error {err}")
     LAUNCHES += 1
     LAUNCHES_BY_KERNEL[route] += 1
+    _observe(route, q, k, causal, window)
     return dq, dk, dv

@@ -43,15 +43,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..parallel.sharding import (DEFAULT_RULES, AxisRules, P, batch_axes,
-                                 constrain, mesh_axis_sizes, placements,
-                                 spec_for)
+                                 constrain, is_dtensor, mesh_axis_sizes,
+                                 placements, replicate_like, spec_for)
 
 __all__ = ["ParamDef", "init_params", "init_stacked", "param_specs",
            "stack_defs", "rms_norm", "dtype_of", "count_params",
-           "embed_lookup", "logits_constrain", "sp_boundary", "sp_constrain",
+           "embed_lookup", "unembed_product", "logits_constrain",
+           "sp_boundary", "sp_constrain",
            "tree_map", "tree_leaves", "tree_items", "tree_from_items",
            "records_grad", "ParamTree", "LanguageModel", "REMAT",
-           "mesh_forward"]
+           "mesh_forward", "mesh_inference", "write_into", "write_slot",
+           "sharded_full"]
 
 REMAT = ("full", "none")
 
@@ -218,28 +220,54 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh=None,
     indexing's backward on the CPU as nondeterministic), so a train step
     repeats bit for bit.
 
-    With a mesh, the reference's one-hot contraction: ``onehot(tokens) @
-    table``, the one-hot laid out batch over the dp axes and vocab as the
-    table's vocab dim, so the product partitions over a vocab-sharded table
-    without gathering it.  Each output row has one nonzero product, so the
-    forward gives the gather's bits; the table's gradient is ``onehot^T g``
-    summed inside a GEMM, another order than the gather's.  This rank's
-    columns of the one-hot are built from `tokens` (the global batch, a
-    plain tensor the same on every rank, or a DTensor) by a comparison."""
+    With a mesh, the reference's one-hot contraction ``onehot(tokens) @
+    table``, partitioned as GSPMD partitions it, under ``local_map``: each
+    rank compares its batch shard of `tokens` (the global batch, a plain
+    tensor the same on every rank, or a DTensor) with its vocab columns
+    and multiplies the one-hot by its rows of the table; where the vocab
+    is sharded the products are partial sums over those mesh dims (one
+    nonzero term a row, so the gather's bits), reduced where the next op
+    needs them.  The table's gradient is ``onehot^T g`` on each rank,
+    partial over the batch's mesh dims (another order of summation than
+    the gather's).  The one-hot never meets DTensor's sharding
+    propagation, which at 512 ranks spends seconds planning its
+    transposed [V, B * S] layouts in the backward."""
     if mesh is None:
         return F.embedding(tokens, table)
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
 
     v = table.shape[0]
     spec = spec_for(tuple(tokens.shape) + (v,),
                     ("batch",) * tokens.dim() + ("vocab",), mesh,
                     rules or DEFAULT_RULES)
-    tok = constrain(tokens, mesh, P(*spec[:-1])).to_local()
-    cols = constrain(torch.arange(v, device=tok.device), mesh,
-                     P(spec[-1])).to_local()
-    oh = DTensor.from_local((tok[..., None] == cols).to(table.dtype), mesh,
-                            placements(spec, mesh), run_check=False)
-    return oh @ table
+    tok = constrain(tokens, mesh, P(*spec[:-1]))
+    cols = constrain(torch.arange(v, device=tok.device), mesh, P(spec[-1]))
+    table = constrain(table, mesh, P(spec[-1], None))
+    vocab = set(_axes(spec[-1]))
+    batch = set(a for entry in spec[:-1] for a in _axes(entry))
+    names = list(mesh_axis_sizes(mesh))
+    out = [Partial() if n in vocab else pl
+           for n, pl in zip(names, placements(P(*spec[:-1], None), mesh))]
+    grad = [Partial() if n in batch else pl
+            for n, pl in zip(names, table.placements)]
+
+    def local(t, c, w):
+        return (t[..., None] == c).to(w.dtype) @ w
+
+    return local_map(local, out_placements=out,
+                     in_placements=(tok.placements, cols.placements,
+                                    table.placements),
+                     in_grad_placements=(tok.placements, cols.placements,
+                                         grad),
+                     device_mesh=mesh)(tok, cols, table)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def logits_constrain(logits: torch.Tensor, mesh,
@@ -251,6 +279,38 @@ def logits_constrain(logits: torch.Tensor, mesh,
                     ("batch",) + (None,) * (logits.dim() - 2) + ("vocab",),
                     mesh, rules or DEFAULT_RULES)
     return constrain(logits, mesh, spec)
+
+
+def unembed_product(x: torch.Tensor, w: torch.Tensor, mesh,
+                    rules: Optional[AxisRules] = None) -> torch.Tensor:
+    """``x @ w`` for x [B, S, d] and a [d, V] output table (the
+    embedding's transpose or ``lm_head``).  On a mesh under ``local_map``
+    as GSPMD partitions it: x batch over the dp axes and replicated
+    elsewhere, `w` vocab-parallel, the product [B, S, V] batch- and
+    vocab-sharded with no communication; x's gradient is partial over the
+    vocab's mesh dims, `w`'s over the batch's.  The [V, B * S] cotangent
+    of `w`'s gradient never meets DTensor's sharding propagation (at 512
+    ranks it planned its layouts for minutes)."""
+    if mesh is None:
+        return x @ w
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, d = x.shape
+    spec = spec_for((b, s, w.shape[1]), ("batch", None, "vocab"), mesh,
+                    rules or DEFAULT_RULES)
+    x = constrain(x, mesh, P(spec[0], None, None))
+    w = constrain(w, mesh, P(None, spec[2]))
+    vocab = set(_axes(spec[2]))
+    batch = set(_axes(spec[0]))
+    names = list(mesh_axis_sizes(mesh))
+    gx = [Partial() if n in vocab else pl for n, pl in zip(names,
+                                                           x.placements)]
+    gw = [Partial() if n in batch else pl for n, pl in zip(names,
+                                                           w.placements)]
+    return local_map(torch.matmul, out_placements=list(placements(spec, mesh)),
+                     in_placements=(x.placements, w.placements),
+                     in_grad_placements=(gx, gw), device_mesh=mesh)(x, w)
 
 
 def sp_boundary(x: torch.Tensor, mesh, enable: bool,
@@ -297,6 +357,90 @@ def mesh_forward(fn: Callable) -> Callable:
     return run
 
 
+def mesh_inference(fn: Callable) -> Callable:
+    """A model method under ``inference_mode``, or under ``no_grad`` on a
+    mesh (`mesh_forward`'s reason): the decode steps."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        if self.mesh is None:
+            with torch.inference_mode():
+                return fn(self, *args, **kwargs)
+        with torch.inference_mode(False), torch.no_grad():
+            return fn(self, *args, **kwargs)
+    return run
+
+
+def _shard_range(t: torch.Tensor, dim: int) -> Tuple[int, int]:
+    """(first index, length) of dim `dim` of DTensor `t` on this rank: the
+    dim's mesh dims split it evenly (as `spec_for` shards only where it
+    divides), the first major, as DTensor's ``Shard`` over several mesh
+    dims does."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    index, parts = 0, 1
+    for m, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim % t.dim() == dim:
+            index = index * mesh.size(m) + coord[m]
+            parts *= mesh.size(m)
+    size = t.shape[dim] // parts
+    return index * size, size
+
+
+def write_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for a cache leaf `dst`, in place.  A DTensor
+    `dst` takes `src` laid out as itself (`src` a DTensor, partial or
+    not, or the global value as a plain tensor) into its local shard."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    src = replicate_like(src, dst).redistribute(dst.device_mesh,
+                                                dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
+def write_slot(dst: torch.Tensor, dim: int, index: int,
+               src: torch.Tensor) -> None:
+    """``dst.select(dim, index).copy_(src.select(dim, 0))`` in place: row
+    `index` of a cache leaf along `dim` from `src`, which has `dst`'s
+    shape but 1 along `dim`.  On a mesh only the rank whose shard of
+    `dim` holds `index` writes, from `src` laid out as `dst` elsewhere
+    and replicated along `dim` (the reference's ``dynamic_update_slice``
+    into a sharded cache)."""
+    if not is_dtensor(dst):
+        dst.select(dim, index).copy_(src.select(dim, 0))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = dst.device_mesh
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim % dst.dim()
+            == dim else pl for pl in dst.placements]
+    local = replicate_like(src, dst).redistribute(mesh, want).to_local()
+    start, size = _shard_range(dst, dim)
+    if start <= index < start + size:
+        dst.to_local().select(dim, index - start).copy_(local.select(dim, 0))
+
+
+def sharded_full(shape: Tuple[int, ...], fill, dtype: torch.dtype, device,
+                 mesh, spec) -> torch.Tensor:
+    """A DTensor of `shape` filled with `fill`, laid out per `spec` on
+    `mesh`; only this rank's shard is allocated (on `device`: the meta
+    device allocates nothing)."""
+    from torch.distributed.tensor import DTensor
+
+    sizes = mesh_axis_sizes(mesh)
+    local = list(shape)
+    for i, entry in enumerate(spec):
+        for a in _axes(entry):
+            local[i] //= sizes[a]
+    t = torch.full(local, fill, dtype=dtype, device=device)
+    return DTensor.from_local(t, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 class ParamTree(nn.Module):
     """A nested dict of tensors as registered, frozen parameters, so that
     ``state_dict`` names follow the JAX tree ("layers.attn.wq")."""
@@ -327,7 +471,10 @@ class LanguageModel(nn.Module):
     value, the same on every rank, and the model keeps this rank's shard
     of it (on a mesh of one, the tensor itself: no copy); a DTensor leaf
     is redistributed.  `sp` turns on the sequence-parallel residual
-    stream (`sp_constrain`).  Decode on a mesh is not ported: it raises."""
+    stream (`sp_constrain`).  Decode runs on a mesh too: `init_cache`
+    lays each cache leaf out per the model's ``cache_pspecs``
+    (`_place_cache`) and the decode steps write into the local shards
+    (`write_into`, `write_slot`)."""
 
     def __init__(self, cfg, params: Dict[str, Any], table: Dict[str, Any],
                  remat: str = "full", *, mesh=None, sp: bool = False,
@@ -359,11 +506,33 @@ class LanguageModel(nn.Module):
         """`sp_boundary` with the model's mesh, sp and rules."""
         return sp_boundary(x, self.mesh, self.sp, self.rules)
 
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh is not ported (no sharded cache); build "
-                f"the model without a mesh to serve")
+    def _cache_device(self) -> torch.device:
+        """Where `init_cache` builds its tree: the model's device, or the
+        meta device on a mesh, where `_place_cache` allocates the
+        shards."""
+        return self.device if self.mesh is None else torch.device("meta")
+
+    def _place_cache(self, cache, batch: int, max_seq: int):
+        """`cache` as is without a mesh; on one, each leaf a DTensor laid
+        out per the model's ``cache_pspecs``, this rank's shard
+        allocated on the model's device: a leaf already a DTensor is
+        redistributed, a meta one (`_cache_device`) filled as
+        `init_cache` fills it: ``slot_pos`` with -1, the rest with 0."""
+        if self.mesh is None:
+            return cache
+        spec_of = dict(tree_items(self.cache_pspecs(self.mesh, batch,
+                                                    max_seq, self.rules)))
+        out = []
+        for path, leaf in tree_items(cache):
+            if leaf.device.type != "meta" or is_dtensor(leaf):
+                out.append((path, constrain(leaf, self.mesh,
+                                            spec_of[path])))
+                continue
+            fill = -1 if path[-1] == "slot_pos" else 0
+            out.append((path, sharded_full(tuple(leaf.shape), fill,
+                                           leaf.dtype, self.device,
+                                           self.mesh, spec_of[path])))
+        return tree_from_items(out)
 
     def _layer_call(self, fn: Callable, p, x: torch.Tensor, *args):
         """``fn(p, x, *args)``, one layer.  Where autograd records and
@@ -400,8 +569,9 @@ class LanguageModel(nn.Module):
         w = p["embedding"].T if tied else p["lm_head"]
         # on a mesh laid out before the softcap (elementwise: the same
         # values as the reference's constraint after it)
-        logits = logits_constrain((x @ w.to(x.dtype)).float(), self.mesh,
-                                  self.rules)
+        logits = logits_constrain(
+            unembed_product(x, w.to(x.dtype), self.mesh, self.rules).float(),
+            self.mesh, self.rules)
         cap = self.cfg.final_softcap
         if cap is not None and records_grad(logits):
             logits = torch.tanh(logits / cap) * cap  # the same bits

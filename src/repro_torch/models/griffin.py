@@ -22,8 +22,8 @@ final softcap, as in the reference.  ``remat`` recomputes each block in
 the backward.  On a ``mesh`` the parameters are DTensors placed per
 `param_pspecs` and the blocks carry the reference's anchors
 (`sp_boundary` around the mixers and MLPs, `sp_constrain` after each
-group); `cache_specs` gives the decode cache's specs, though decode
-itself runs without a mesh.
+group); `init_cache` lays the decode cache out per `cache_specs` and
+`decode_step` runs on the mesh too.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ from ..obs.profiler import named_scope
 from ..parallel.sharding import DEFAULT_RULES, AxisRules, spec_for
 from . import attention as attn
 from . import mlp as ffn
-from .common import (LanguageModel, ParamDef, mesh_forward, records_grad,
-                     rms_norm, sp_constrain, stack_defs, tree_map)
+from .common import (LanguageModel, ParamDef, mesh_forward, mesh_inference,
+                     records_grad, rms_norm, sp_constrain, stack_defs,
+                     tree_map, write_into)
 from .config import ModelConfig
 from .rope import default_positions
 
@@ -211,8 +212,8 @@ class GriffinLM(LanguageModel):
                 y = lru_scan(a, b)
         else:  # one step; the new state written into the cache
             h1 = a[:, 0] * cache["h"] + b[:, 0]
-            cache["conv"].copy_(xp[:, -(k - 1):])
-            cache["h"].copy_(h1)
+            write_into(cache["conv"], xp[:, -(k - 1):])
+            write_into(cache["h"], h1)
             y = h1[:, None]
         return (y.to(dt) * gate) @ p["w_out"].to(dt)
 
@@ -231,7 +232,8 @@ class GriffinLM(LanguageModel):
             a = attn.attn_apply(p["attn"], h, cfg, positions, local=True,
                                 rules=self.rules)
         else:
-            a, _ = attn.attn_decode(p["attn"], h, cfg, cache, pos, local=True)
+            a, _ = attn.attn_decode(p["attn"], h, cfg, cache, pos, local=True,
+                                    rules=self.rules)
         x = x + a
         h = rms_norm(x, p["mlp_ln"], cfg.norm_eps)
         return x + ffn.mlp_apply(p["mlp"], h, cfg)
@@ -273,34 +275,36 @@ class GriffinLM(LanguageModel):
     # -- decode ----------------------------------------------------------
     def _rec_cache(self, batch: int, dtype: torch.dtype, lead=()):
         w = self.cfg.lru_width
+        dev = self._cache_device()
         return {"conv": torch.zeros(lead + (batch, _CONV - 1, w), dtype=dtype,
-                                    device=self.device),
+                                    device=dev),
                 "h": torch.zeros(lead + (batch, w), dtype=torch.float32,
-                                 device=self.device)}
+                                 device=dev)}
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """The reference's cache tree: ``rec`` [groups, 2, ...], ``att``
         [groups, ...] (rolling, ``min(local_window, max_seq)`` slots) and
         ``tail`` [tail, ...]; the conv state holds the last 3 inputs in
-        `dtype`, ``h`` is float32."""
+        `dtype`, ``h`` is float32; on a mesh laid out per
+        `cache_pspecs`."""
         cfg = self.cfg
         dtype = dtype or self.dtype
         g = _groups(cfg)
-        ac = attn.init_cache(cfg, batch, max_seq, True, dtype, self.device)
+        ac = attn.init_cache(cfg, batch, max_seq, True, dtype,
+                             self._cache_device())
         out = {"rec": self._rec_cache(batch, dtype, (g, 2)),
                "att": tree_map(lambda a: a.expand((g,) + a.shape).clone(),
                                ac)}
         if _tail(cfg):
             out["tail"] = self._rec_cache(batch, dtype, (_tail(cfg),))
-        return out
+        return self._place_cache(out, batch, max_seq)
 
-    @torch.inference_mode()
+    @mesh_inference
     def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor,
                     pos: int):
         """tokens [B, 1], pos an int -> (float32 logits [B, 1, V], cache);
         the cache is updated in place and returned."""
-        self._no_mesh("decode_step")
         p = self.params.tree()
         x = self._embed(p, tokens)
         for kind, pi, ci in self._layers(p, cache):

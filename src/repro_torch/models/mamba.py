@@ -18,8 +18,8 @@ reference unembeds with the embedding's transpose whatever
 each layer in the backward.  On a ``mesh`` the parameters are DTensors
 placed per `param_pspecs` and each layer carries the reference's anchors
 (`sp_boundary` around the mixer, `sp_constrain` on the residual);
-`cache_specs` gives the decode cache's specs, though decode itself runs
-without a mesh.
+`init_cache` lays the decode cache out per `cache_specs` and
+`decode_step` runs on the mesh too.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ from ..obs.profiler import named_scope
 from ..parallel.sharding import (DEFAULT_RULES, AxisRules, is_dtensor,
                                  replicate_like, spec_for)
 from .common import (LanguageModel, ParamDef, embed_lookup, mesh_forward,
-                     records_grad, rms_norm, sp_constrain, stack_defs)
+                     mesh_inference, records_grad, rms_norm, sp_constrain,
+                     stack_defs, write_into)
 from .config import ModelConfig
 from .griffin import lru_scan
 
@@ -129,6 +130,42 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, max_seq: int,
     }
 
 
+def _in_proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h [B, S, d] times in_proj [d, 2, E] -> [B, S, 2, E].  On a mesh
+    under ``local_map`` as GSPMD partitions it: h batch-sharded where it
+    is, w's E sharded where it is (a mesh dim that shards both keeps h's
+    batch), each rank's product [B_loc, S, 2, E_loc]; h's gradient is
+    partial over w's mesh dims, w's over h's.  DTensor's own product
+    flattens (2, E) with E sharded, which torch 2.11 refuses."""
+    b, s, d = h.shape
+    e = w.shape[2]
+    if not is_dtensor(h):
+        return (h @ w.reshape(d, 2 * e)).view(b, s, 2, e)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    w = replicate_like(w, h)
+    hp, wp, out, gh, gw = [], [], [], [], []
+    for hpl, wpl in zip(h.placements, w.placements):
+        # (h, w, the product, h's gradient, w's gradient) on this mesh dim
+        if isinstance(hpl, Shard) and hpl.dim == 0:
+            row = (hpl, Replicate(), hpl, hpl, Partial())
+        elif isinstance(wpl, Shard) and wpl.dim == 2:
+            row = (Replicate(), wpl, Shard(3), Partial(), wpl)
+        else:
+            row = (Replicate(),) * 5
+        for lst, pl in zip((hp, wp, out, gh, gw), row):
+            lst.append(pl)
+
+    def local(x, v):
+        el = v.shape[2]
+        return (x @ v.reshape(d, 2 * el)).view(x.shape[0], s, 2, el)
+
+    return local_map(local, out_placements=out, in_placements=(hp, wp),
+                     in_grad_placements=(gh, gw), device_mesh=h.device_mesh,
+                     redistribute_inputs=True)(h, w)
+
+
 class MambaLM(LanguageModel):
     """The SSM LM with `params`, a tree of `defs(cfg)`'s shapes (from
     `common.init_params` or `convert.params_from_reference`)."""
@@ -152,7 +189,7 @@ class MambaLM(LanguageModel):
         e, n, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
         dt_ = h.dtype
         bsz, s, dm = h.shape
-        xz = (h @ p["in_proj"].to(dt_).reshape(dm, 2 * e)).view(bsz, s, 2, e)
+        xz = _in_proj(h, p["in_proj"].to(dt_))
         x, z = xz[:, :, 0], xz[:, :, 1]  # [B, S, E]
         if cache is None:
             xp = F.pad(x, (0, 0, k - 1, 0))
@@ -176,8 +213,8 @@ class MambaLM(LanguageModel):
             h1 = da * cache["ssm"] + dbx
             y = torch.einsum("ben,bn->be", h1, cmat[:, 0].float())
             y = (y + xc[:, 0].float() * p["d"].float())[:, None].to(dt_)
-            cache["conv"].copy_(xp[:, -(k - 1):])
-            cache["ssm"].copy_(h1)
+            write_into(cache["conv"], xp[:, -(k - 1):])
+            write_into(cache["ssm"], h1)
         return (y.to(dt_) * F.silu(z)) @ p["out_proj"].to(dt_)
 
     def _layers(self, p, cache=None):
@@ -214,27 +251,26 @@ class MambaLM(LanguageModel):
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """The reference's cache: ``conv`` [L, B, k-1, E] in `dtype` and
-        ``ssm`` [L, B, E, N] float32, both zero; `max_seq` is unused (the
-        state is O(1))."""
+        ``ssm`` [L, B, E, N] float32, both zero (on a mesh laid out per
+        `cache_pspecs`); `max_seq` is unused (the state is O(1))."""
         cfg = self.cfg
         dtype = dtype or self.dtype
-        L = cfg.num_layers
-        return {
+        L, dev = cfg.num_layers, self._cache_device()
+        return self._place_cache({
             "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner),
-                                dtype=dtype, device=self.device),
+                                dtype=dtype, device=dev),
             "ssm": torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state),
-                               dtype=torch.float32, device=self.device),
-        }
+                               dtype=torch.float32, device=dev),
+        }, batch, max_seq)
 
-    @torch.inference_mode()
+    @mesh_inference
     def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor,
                     pos: int):
         """tokens [B, 1] -> (float32 logits [B, 1, V], cache); the cache
         is updated in place and returned (`pos` is unused: the state
         carries the position)."""
-        self._no_mesh("decode_step")
         p = self.params.tree()
-        x = embed_lookup(p["embedding"], tokens)
+        x = embed_lookup(p["embedding"], tokens, self.mesh, self.rules)
         for lp, lc in self._layers(p, cache):
             x = x + self._mixer(lp, rms_norm(x, lp["ln"], self.cfg.norm_eps),
                                 lc)

@@ -237,15 +237,28 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
         e_local = e_total // mesh_axis_sizes(mesh)["model"]
         e_start = mesh.get_local_rank("model") * e_local
         xs, ws = P(batch_axes(mesh), None, None), P("model", None, None)
+        names = list(mesh_axis_sizes(mesh))
+        dp = set(batch_axes(mesh))
         # the local sums, Partial over `model` until the all-reduce
         part = [Partial() if n == "model" else pl for n, pl
-                in zip(mesh_axis_sizes(mesh), placements(xs, mesh))]
+                in zip(names, placements(xs, mesh))]
         args = [constrain(x, mesh, xs), constrain(p["router"], mesh,
                                                   P(None, None))]
         args += [constrain(p[k], mesh, ws) for k in ("wg", "wu", "wd")]
+        # the gradients each rank forms: x's and the router's hold only
+        # this rank's experts' share (partial over `model`), the router's
+        # and the experts' only this rank's tokens' (partial over the dp
+        # axes)
+        grads = (part,
+                 [Partial() if n == "model" or n in dp else pl
+                  for n, pl in zip(names, args[1].placements)],
+                 *([Partial() if n in dp else pl
+                    for n, pl in zip(names, a.placements)]
+                   for a in args[2:]))
         out = local_map(lambda *a: run(*a, e_start, e_local),
                         out_placements=part,
                         in_placements=tuple(a.placements for a in args),
+                        in_grad_placements=grads,
                         device_mesh=mesh)(*args)
         x = args[0]
         out = out.redistribute(mesh, placements(xs, mesh))

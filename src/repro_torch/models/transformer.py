@@ -20,9 +20,9 @@ _layer_call`).  On a ``mesh`` the parameters are DTensors placed per
 `param_pspecs`, the blocks carry the reference's anchors (`sp_boundary`
 around attention and the FFN, `sp_constrain` after each pattern group,
 the one-hot embedding and `logits_constrain`) and the MoE blocks run
-expert parallelism (`mlp.moe_apply`); `cache_specs` gives the decode
-cache's specs, though decode itself runs without a mesh.  The MoE blocks
-route dropless in decode, as the reference's do.
+expert parallelism (`mlp.moe_apply`); `init_cache` lays the decode cache
+out per `cache_specs` and `decode_step` runs on the mesh too.  The MoE
+blocks route dropless in decode, as the reference's do.
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ import torch
 from . import attention as attn
 from . import mlp as ffn
 from ..parallel.sharding import DEFAULT_RULES, AxisRules, spec_for
-from .common import (LanguageModel, ParamDef, mesh_forward, rms_norm,
-                     sp_constrain, stack_defs, tree_map)
+from .common import (LanguageModel, ParamDef, mesh_forward, mesh_inference,
+                     rms_norm, sp_constrain, stack_defs, tree_map)
 from .config import ModelConfig
 from .rope import default_positions, mrope_positions
 
@@ -147,7 +147,7 @@ class TransformerLM(LanguageModel):
                                 local=local, rules=self.rules)
         else:
             a, cache = attn.attn_decode(p["attn"], h, cfg, cache, pos,
-                                        local=local)
+                                        local=local, rules=self.rules)
         if "ln1_post" in p:
             a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
         x = x + self._boundary(a)
@@ -193,9 +193,11 @@ class TransformerLM(LanguageModel):
                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """The reference's cache tree: ``p{i}`` for pattern position i, each
         leaf stacked over the groups of ``len(layer_pattern)`` stacked
-        layers, and ``layer0``'s (global) cache where the model has one."""
+        layers, and ``layer0``'s (global) cache where the model has one;
+        on a mesh laid out per `cache_pspecs`."""
         cfg = self.cfg
         dtype = dtype or self.dtype
+        dev = self._cache_device()
         pattern = cfg.layer_pattern
         n = _scanned_layers(cfg)
         if n % len(pattern):
@@ -204,7 +206,7 @@ class TransformerLM(LanguageModel):
         groups = n // len(pattern)
 
         def one(local):
-            c = attn.init_cache(cfg, batch, max_seq, local, dtype, self.device)
+            c = attn.init_cache(cfg, batch, max_seq, local, dtype, dev)
             return tree_map(lambda a: a.expand((groups,) + a.shape).clone(),
                             c)
 
@@ -212,15 +214,14 @@ class TransformerLM(LanguageModel):
                  for i, kind in enumerate(pattern)}
         if cfg.first_dense_d_ff:
             cache["layer0"] = attn.init_cache(cfg, batch, max_seq, False,
-                                              dtype, self.device)
-        return cache
+                                              dtype, dev)
+        return self._place_cache(cache, batch, max_seq)
 
-    @torch.inference_mode()
+    @mesh_inference
     def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor,
                     pos: int):
         """tokens [B, 1], pos an int -> (float32 logits [B, 1, V], cache);
         the cache is updated in place and returned."""
-        self._no_mesh("decode_step")
         p = self.params.tree()
         gsize = len(self.cfg.layer_pattern)
         x = self._embed(p, tokens)

@@ -22,8 +22,9 @@ a ``mesh`` the parameters are DTensors placed per `param_pspecs`, the
 frames (the global batch's) and the sinusoid tables join the activations
 as DTensors, and the blocks carry the reference's anchors
 (`sp_boundary` around attention, cross-attention and the MLPs,
-`sp_constrain` after each decoder layer); `cache_specs` gives the decode
-cache's specs, though decode itself runs without a mesh.
+`sp_constrain` after each decoder layer); `init_cache` lays the decode
+cache out per `cache_specs` (the encoder's memory too) and `decode_step`
+runs on the mesh too.
 """
 
 from __future__ import annotations
@@ -35,11 +36,12 @@ import torch
 
 from ..obs.profiler import named_scope
 from ..parallel.sharding import (DEFAULT_RULES, AxisRules, is_dtensor,
-                                 replicate_like, spec_for)
+                                 placements, replicate_like, spec_for)
 from . import attention as attn
 from . import mlp as ffn
 from .common import (LanguageModel, ParamDef, embed_lookup, mesh_forward,
-                     rms_norm, sp_constrain, stack_defs, tree_map)
+                     mesh_inference, rms_norm, sp_constrain, stack_defs,
+                     tree_map)
 from .config import ModelConfig
 from .rope import default_positions
 
@@ -59,6 +61,17 @@ def _sinusoid(seq: int, dim: int, dtype: torch.dtype, device,
     ang = pos * div
     return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
         seq, dim).to(dtype)
+
+
+def _cross_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                cfg: ModelConfig, dt: torch.dtype) -> torch.Tensor:
+    """Cross-attention's float32 einsum softmax on plain tensors (the
+    reference's): q [B, H, S, K], k/v [B, H, F, K] -> [B, H, S, K] in
+    `dt`."""
+    logits = torch.einsum("bhsk,bhfk->bhsf",
+                          q.float() * cfg.head_dim ** -0.5, k.float())
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhsf,bhfk->bhsk", w, v.float()).to(dt)
 
 
 def _cross_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -183,16 +196,23 @@ class WhisperModel(LanguageModel):
                                        sk)
                 v = attn.project_heads(memory.to(mt), p["wv"].to(dt).to(mt),
                                        sk)
-            else:
-                q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
-                k = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
-                                 p["wk"].to(dt).to(mt))
-                v = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
-                                 p["wv"].to(dt).to(mt))
-            logits = torch.einsum("bhsk,bhfk->bhsf",
-                                  q.float() * cfg.head_dim ** -0.5, k.float())
-            w = torch.softmax(logits, dim=-1)
-            o = torch.einsum("bhsf,bhfk->bhsk", w, v.float()).to(dt)
+                # each rank's batch and heads (torch 2.11's DTensor
+                # refuses the products' flattening of two sharded dims)
+                from torch.distributed.tensor.experimental import local_map
+
+                mesh = x.device_mesh
+                pq, pk = placements(sq, mesh), placements(sk, mesh)
+                o = local_map(lambda a, b, c: _cross_core(a, b, c, cfg, dt),
+                              out_placements=list(pq),
+                              in_placements=(pq, pk, pk), device_mesh=mesh,
+                              redistribute_inputs=True)(q, k, v)
+                return attn.merge_heads(o, p["wo"].to(dt), sq)
+            q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
+            k = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
+                             p["wk"].to(dt).to(mt))
+            v = torch.einsum("bfd,dhk->bhfk", memory.to(mt),
+                             p["wv"].to(dt).to(mt))
+            o = _cross_core(q, k, v, cfg, dt)
             return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(dt))
 
     def _dec_block(self, p, x: torch.Tensor, memory: torch.Tensor, positions,
@@ -203,7 +223,8 @@ class WhisperModel(LanguageModel):
             a = attn.attn_apply(p["attn"], self._boundary(h), cfg, positions,
                                 rules=self.rules)
         else:
-            a, _ = attn.attn_decode(p["attn"], h, cfg, cache, pos)
+            a, _ = attn.attn_decode(p["attn"], h, cfg, cache, pos,
+                                    rules=self.rules)
         x = x + self._boundary(a)
         c = self._cross_apply(p["cross"], rms_norm(x, p["lnx"], cfg.norm_eps),
                               memory)
@@ -246,29 +267,29 @@ class WhisperModel(LanguageModel):
         """The reference's cache: ``self`` (k/v [L, B, Hkv, max_seq, D] in
         `dtype`, ``slot_pos`` [L, max_seq]) and ``memory`` [B, F, d], the
         encoder run over `frames` when they are given, else zeros in
-        `dtype`."""
+        `dtype`; on a mesh laid out per `cache_pspecs`."""
         cfg = self.cfg
         dtype = dtype or self.dtype
-        L = cfg.num_layers
-        one = attn.init_cache(cfg, batch, max_seq, False, dtype, self.device)
+        L, dev = cfg.num_layers, self._cache_device()
+        one = attn.init_cache(cfg, batch, max_seq, False, dtype, dev)
         self_c = tree_map(lambda a: a.expand((L,) + a.shape).clone(), one)
         if frames is not None:
             memory = self.encode(frames)
         else:
             memory = torch.zeros((batch, cfg.encoder_frames, cfg.d_model),
-                                 dtype=dtype, device=self.device)
-        return {"self": self_c, "memory": memory}
+                                 dtype=dtype, device=dev)
+        return self._place_cache({"self": self_c, "memory": memory}, batch,
+                                 max_seq)
 
-    @torch.inference_mode()
+    @mesh_inference
     def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor,
                     pos: int):
         """tokens [B, 1], pos an int -> (float32 logits [B, 1, V], cache);
         the self-attention cache is updated in place and returned."""
-        self._no_mesh("decode_step")
         p = self.params.tree()
-        x = embed_lookup(p["embedding"], tokens)
-        x = x + _sinusoid(1, self.cfg.d_model, x.dtype, x.device,
-                          start=pos)[None]
+        x = embed_lookup(p["embedding"], tokens, self.mesh, self.rules)
+        x = x + replicate_like(_sinusoid(1, self.cfg.d_model, x.dtype,
+                                         x.device, start=pos)[None], x)
         memory = cache["memory"]
         for i in range(self.cfg.num_layers):
             x = self._dec_block(_layer(p["decoder"], i), x, memory, None,

@@ -29,13 +29,47 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     one card it is a gather here: the contraction adds V - 1 exact zeros
     to the label's logit, so the two give the same bits, and the gather
     neither builds the [B, S, V] one-hot nor reads the logits a second
-    time.  On a mesh the logits are a DTensor (`_label_logits`)."""
-    lse = torch.logsumexp(logits, dim=-1)
+    time.  On a mesh the logits are a DTensor (`_label_logits`,
+    `_logsumexp`)."""
+    lse = _logsumexp(logits)
     ll = _label_logits(logits, targets.long())
     nll = (lse - ll).mean()
     if z_loss:
         nll = nll + z_loss * lse.square().mean()
     return nll
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(logits, -1)``.  For a DTensor whose vocab dim is
+    sharded, vocab-parallel, as GSPMD partitions the reference's: each
+    rank's row max and sum of ``exp(x - max)`` over its columns, reduced
+    over the vocab's mesh dims ([B, S] values), where DTensor's own
+    logsumexp would first gather every rank's whole [B, S, V] row block
+    (40 GB a device for qwen2-0.5b's ``train_4k`` cell on 256 devices),
+    and its backward would gather them again: the gradient, the softmax
+    ``exp(x - lse)``, is formed here on each rank's columns."""
+    if not is_dtensor(logits) or not any(
+            getattr(p, "dim", None) in (-1, logits.dim() - 1)
+            and logits.device_mesh.size(i) > 1
+            for i, p in enumerate(logits.placements)):
+        return torch.logsumexp(logits, dim=-1)  # (a mesh of one: its bits)
+    return _VocabParallelLSE.apply(logits)
+
+
+class _VocabParallelLSE(torch.autograd.Function):
+    """`_logsumexp` of a DTensor with a sharded vocab dim."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(dim=-1, keepdim=True)
+        lse = (x - m).exp().sum(dim=-1).log() + m.squeeze(-1)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp()
 
 
 def _label_logits(logits: torch.Tensor,

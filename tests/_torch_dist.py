@@ -305,3 +305,72 @@ def rank_forward(rank, world, tmp, shape, archs):
                   os.path.join(tmp, f"ckpt_{arch}"), 0)
         if rank == 0:
             save_tree(os.path.join(tmp, f"{arch}_out.npz"), {"sp": logits})
+
+
+def rank_decode(rank, world, tmp, shape, archs, steps):
+    """Each family's decode on a `shape` ("data", "model") mesh from the
+    reference's parameters, tokens (and frames) in tmp/<arch>.npz:
+    `init_cache` on the mesh, then `steps` decode steps; the logits of
+    every step to tmp/<arch>_out.npz (rank 0), and the cache's placements
+    checked against the model's `cache_pspecs`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import model_parts
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.parallel.sharding import placements
+
+    mesh = make_mesh(shape, ("data", "model"))
+    for arch in archs:
+        inputs = load_tree(os.path.join(tmp, f"{arch}.npz"))
+        cfg = get_config(arch).scaled_down(
+            dtype="float32", num_layers=int(inputs["num_layers"]))
+        params = params_from_reference(inputs["params"], device="cpu")
+        model = model_parts(cfg)[1](cfg, params, mesh=mesh)
+        tokens = torch.from_numpy(inputs["tokens"])
+        b, max_seq = tokens.shape[0], int(inputs["max_seq"])
+        kw = {"frames": torch.from_numpy(inputs["frames"])} \
+            if "frames" in inputs else {}
+        cache = model.init_cache(b, max_seq, **kw)
+        specs = dict(tree_items(model.cache_pspecs(mesh, b, max_seq)))
+        for path, leaf in tree_items(cache):
+            if tuple(leaf.placements) != placements(specs[path], mesh):
+                raise AssertionError(f"{arch} {path}: {leaf.placements}")
+        # a key cache whose sequence dim is sharded (kv_seq over "model")
+        seq = any(path[-1] == "k" and specs[path][-2] is not None
+                  for path in specs)
+        out = []
+        for t in range(steps):
+            logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+            out.append(logits.full_tensor())
+        if rank == 0:
+            save_tree(os.path.join(tmp, f"{arch}_out.npz"),
+                      {"logits": torch.stack(out),
+                       "seq_sharded": np.int32(seq)})
+
+
+def rank_mesh_grads(rank, world, tmp, shape, archs):
+    """Each family's loss and gradients (scaled down, float32, 2 layers,
+    `build_model`'s seed 1) on a `shape` ("data", "model") mesh and
+    without one, on the batch in tmp/<arch>.npz: rank 0 writes both to
+    tmp/<arch>_grads.npz."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.train_step import value_and_grad
+
+    mesh = make_mesh(shape, ("data", "model"))
+    for arch in archs:
+        cfg = _scaled_down(arch)
+        batch = {k: torch.from_numpy(v) for k, v
+                 in load_tree(os.path.join(tmp, f"{arch}.npz")).items()}
+        plain = build_model(cfg, device="cpu", seed=1)
+        meshed = build_model(cfg, device="cpu", seed=1, mesh=mesh)
+        loss0, g0 = value_and_grad(plain, plain.params.tree(), batch)
+        loss1, g1 = value_and_grad(meshed, meshed.params.tree(), batch)
+        g1 = _full(g1)
+        if rank == 0:
+            save_tree(os.path.join(tmp, f"{arch}_grads.npz"),
+                      {"loss": torch.stack([loss0, loss1]),
+                       "meshless": g0, "mesh": tree_map(torch.Tensor.detach,
+                                                        g1)})

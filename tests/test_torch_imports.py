@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 74 else 0)
+sys.exit(1 if bad or missing or len(names) < 80 else 0)
 """ % (sorted([
     # the analysis slice: the §IX APSP and §IV-D routing-table entry
     # points, their kernels' wrappers, the structural metrics and the
@@ -83,6 +83,14 @@ sys.exit(1 if bad or missing or len(names) < 74 else 0)
     "repro_torch.parallel.sharding",
     "repro_torch.parallel.pipeline",
     "repro_torch.launch.mesh",
+    # the launch tools: planner, roofline, cost trace, dry run, collective
+    # breakdown, memory diagnosis
+    "repro_torch.launch.cells",
+    "repro_torch.launch.roofline",
+    "repro_torch.launch.cost",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.collbreak",
+    "repro_torch.launch.memdebug",
 ]),)
 
 
