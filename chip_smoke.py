@@ -25,6 +25,18 @@ train_4k at their planned memory).  Each path's kernel counts are set to
 (``python3 chip_smoke.py train`` runs the named phases alone, a
 development run that then fails for the kernels it did not launch):
 
+  lint       first, on the host: the port's linter (`python -m
+             repro_torch.analysis.lint`, reprolint-torch) over
+             src/repro_torch and this script, resolved from this
+             script's directory; any finding fails the run.  Its
+             files_scanned and suppressed findings by rule.  And its
+             host-sync rule held against the card's own detector: on the
+             lines that the certified and packet phases run under
+             torch.cuda.set_sync_debug_mode("error")
+             (fluid._saturation_batch_traced and what it calls in
+             fluid.py, packet._BatchedRun.run / .cycle and what they
+             call, the path_costs wrapper), the rule reports nothing,
+             raw or suppressed
   device     the card's name and power limit
   build      the nvcc build and its seconds, ptxas's register and spill
              report, and `cuobjdump -sass`'s HGMMA count of each
@@ -424,6 +436,8 @@ def gpu_ms(torch, fn, samples=30, flush_bytes=128 << 20, warmup=3):
     none of `fn`'s inputs (and no dirty lines), and a 1 ms device-side
     spin that keeps the stream busy while the host enqueues the timed call,
     so host launch cost stays out of the window."""
+    from repro_torch.parallel.compat import cuda_sleep
+
     scratch = torch.ones(flush_bytes // 4, dtype=torch.float32,
                          device="cuda")
     for _ in range(warmup):
@@ -431,7 +445,7 @@ def gpu_ms(torch, fn, samples=30, flush_bytes=128 << 20, warmup=3):
     times = []
     for _ in range(samples):
         scratch.sum()
-        torch.cuda._sleep(2_000_000)  # about 1 ms of clock cycles
+        cuda_sleep(2_000_000)  # about 1 ms of clock cycles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -462,6 +476,57 @@ class Smoke:
         self.record["phases"][name] = line
         emit(line)
         return ok
+
+
+# what the certified and packet phases run under
+# torch.cuda.set_sync_debug_mode("error"): the entry functions of each file
+LINT_SYNC_FREE = {
+    "src/repro_torch/simulation/fluid.py": ["_saturation_batch_traced"],
+    "src/repro_torch/simulation/packet.py": ["_BatchedRun.run",
+                                             "_BatchedRun.cycle"],
+    "src/repro_torch/kernels/minplus/ops.py": ["path_costs"],
+}
+
+
+def phase_lint():
+    """The port's lint gate, and its host-sync rule against the card's
+    sync detector (see the module docstring)."""
+    from repro_torch.analysis.lint import DEFAULT_PATHS, lint_paths
+    from repro_torch.analysis.rules import FileContext
+    from repro_torch.analysis.rules.host_sync import (HostSyncRule,
+                                                      reached_lines)
+
+    here = os.getcwd()
+    os.chdir(ROOT)  # DEFAULT_SCOPE's patterns are relative to the root
+    try:
+        res = lint_paths(list(DEFAULT_PATHS))
+        sync_free = {}
+        for path, roots in LINT_SYNC_FREE.items():
+            with open(path) as fh:
+                ctx = FileContext(path, fh.read())
+            lines = reached_lines(ctx, roots)
+            sync_free[path] = {
+                "roots": roots, "lines": len(lines),
+                "host_sync": [f"{f.location()} {f.message}"
+                              for f in HostSyncRule().check(ctx)
+                              if f.line in lines]}
+    finally:
+        os.chdir(here)
+    out = {"python": sys.version.split()[0],
+           "files_scanned": res.files_scanned,
+           "findings": [f"{f.location()}: {f.rule}: {f.message}"
+                        for f in sorted(res.findings)],
+           "suppressed": res.suppressed,
+           "suppressed_by_rule": dict(sorted(res.suppressed_by_rule.items())),
+           "host_sync_vs_sync_debug": sync_free}
+    if (res.findings or not res.suppressed
+            or any(v["host_sync"] for v in sync_free.values())):
+        emit({"phase": "lint.detail", **out})
+        raise AssertionError(
+            f"lint: {len(res.findings)} finding(s); host-sync on the "
+            "sync-free lines: "
+            f"{[v['host_sync'] for v in sync_free.values()]}")
+    return out
 
 
 def phase_device(torch):
@@ -3288,6 +3353,7 @@ def main():
     # development run: the kernel line then misses the others' kernels and
     # the run fails)
     wanted = set(sys.argv[1:]) or {name for name, _, _ in phases}
+    smoke.phase("lint", phase_lint)
     smoke.phase("device", phase_device, torch)
     if smoke.phase("build", phase_build):
         for name, fn, args in phases:

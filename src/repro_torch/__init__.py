@@ -36,6 +36,18 @@ numpy, the link rate given by the caller).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
+
+``repro_torch.analysis`` (reprolint-torch, the port's linter) is
+stdlib-only, so importing this package loads no torch: `resolve_device`
+comes from ``device`` on first use.
 """
 
-from .device import resolve_device  # noqa: F401
+__all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

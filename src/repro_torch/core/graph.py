@@ -87,7 +87,7 @@ class Graph:
         indptr, indices = self.csr
         deg = self.degrees
         dmax = int(deg.max()) if self.n else 0
-        nb = np.full((self.n, dmax), -1, dtype=np.int32)
+        nb = np.full((self.n, dmax), -1, dtype=np.int32)  # reprolint-torch: allow[sentinel] -- -1 pads the ragged [n, deg_max] neighbor matrix; consumers mask by degree
         if dmax:
             cols = np.arange(len(indices)) - np.repeat(indptr[:-1], deg)
             nb[self._csr_rows, cols] = indices

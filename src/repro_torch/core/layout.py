@@ -66,7 +66,7 @@ def build_layout(pf: PolarFly, starter: int | None = None) -> Layout:
             continue  # (starter's neighbors are non-quadric for odd q; guard anyway)
         cid += 1
         centers.append(u)
-        assert cluster_of[u] == -1, "center already assigned (violates Prop. V.1)"
+        assert cluster_of[u] == -1, "center already assigned (violates Prop. V.1)"  # reprolint-torch: allow[sentinel] -- -1 means 'cluster not yet assigned' during Algorithm 1 construction, not a distance
         cluster_of[u] = cid  # line 5
         for w in g.neighbors[u]:  # line 6
             w = int(w)

@@ -268,7 +268,7 @@ def _bfs_device_fn(g: Graph, want_next_hop: bool, device: DeviceLike):
             d += 1
             fr_nb = front[:, snb] & pres  # [B, n, deg_max]
             newly = fr_nb.any(dim=2) & (dist == unreachable)
-            if not bool(newly.any()):
+            if not bool(newly.any()):  # reprolint-torch: allow[host-sync] -- one host read of the new frontier per BFS level (diameter + 1 a source block); ROADMAP item 14 removes it
                 break
             dist.masked_fill_(newly, d)
             if want_next_hop:
@@ -335,7 +335,7 @@ def distance_blocks(g: Graph, block: Optional[int] = None,
         yield srcs, outs[0], outs[1] if next_hop else None
 
 
-def sparse_routing_tables(g: Graph, block: Optional[int] = None,
+def sparse_routing_tables(g: Graph, block: Optional[int] = None,  # reprolint-torch: allow[dense-square] -- contract IS the full [n, n] table pair; built block-by-block, only the output is dense
                           backend: str = "auto",
                           devices: Optional[int] = None,
                           device: DeviceLike = "cuda",
@@ -554,7 +554,7 @@ def build_blocked_routing(g: Graph, block: Optional[int] = None,
         for _, db, _ in distance_blocks(g, budget_bytes=budget_bytes,
                                         backend=backend, devices=devices,
                                         device=device):
-            diam = max(diam, int(db.max()))
+            diam = max(diam, int(db.max()))  # reprolint-torch: allow[host-sync] -- distance_blocks yields numpy blocks (the device backend copies each back once, in blockwise._run_sharded)
     else:
         diam = int(diameter)
     if block is None:
@@ -584,7 +584,7 @@ def bfs_distances(g: Graph, src: int) -> np.ndarray:
     return dist[0]
 
 
-def all_pairs_distances(g: Graph, engine: str = "auto") -> np.ndarray:
+def all_pairs_distances(g: Graph, engine: str = "auto") -> np.ndarray:  # reprolint-torch: allow[dense-square] -- contract IS the full [n, n] distance matrix; dense branch is the small-n reference engine
     """[n, n] int16 distance matrix (UNREACHABLE = -1 off-diagonal marks
     disconnected pairs).
 
@@ -608,7 +608,7 @@ def all_pairs_distances(g: Graph, engine: str = "auto") -> np.ndarray:
     reach = np.eye(n, dtype=bool)
     frontier = np.eye(n, dtype=bool)
     d = 0
-    while frontier.any():
+    while frontier.any():  # reprolint-torch: allow[host-sync] -- frontier is a numpy bool matrix: the host dense engine, no tensor
         d += 1
         if adj_f is not None:
             grown = frontier.astype(np.float32) @ adj_f > 0.0
@@ -621,7 +621,7 @@ def all_pairs_distances(g: Graph, engine: str = "auto") -> np.ndarray:
     return dist
 
 
-def next_hop_table(g: Graph, dist: Optional[np.ndarray] = None,
+def next_hop_table(g: Graph, dist: Optional[np.ndarray] = None,  # reprolint-torch: allow[dense-square] -- contract IS the full [n, n] next-hop table (legacy API); blocked engine backs the sparse branch
                    engine: str = "auto") -> np.ndarray:
     """[n, n] int32 next-hop table for minimal routing on any graph.
 

@@ -49,7 +49,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor as _DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..parallel.compat import (TorchDispatchMode, active_fake_mode,
+                               current_autograd_node, process_group_size)
 
 __all__ = ["ModuleCost", "CostMode", "trace_cost", "ring_wire_bytes",
            "flash_cost"]
@@ -172,16 +174,6 @@ def _kind(func) -> str:
     return "other"
 
 
-def _active_fake_mode():
-    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
-
-
-def _group_size(name) -> int:
-    from torch.distributed.distributed_c10d import _resolve_process_group
-
-    return _resolve_process_group(name).size()
-
-
 class CostMode(TorchDispatchMode):
     """Counts a traced call into ``self.cost`` (a `ModuleCost`).
 
@@ -208,7 +200,7 @@ class CostMode(TorchDispatchMode):
         # DTensor's sharding propagation may run ops under a fake mode of
         # its own to find output shapes: only ops under the fake mode (or
         # none) active at entry are the call's own
-        self._fake = _active_fake_mode()
+        self._fake = active_fake_mode()
         return super().__enter__()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -229,7 +221,7 @@ class CostMode(TorchDispatchMode):
         out = func(*args, **kwargs) if self._run is None \
             else self._run(func, args, kwargs)
         if (kind == "other" and self._observe is None) \
-                or _active_fake_mode() is not self._fake:
+                or active_fake_mode() is not self._fake:
             return out
         if self._observe is not None:
             self._observe(func, out)
@@ -239,7 +231,7 @@ class CostMode(TorchDispatchMode):
         elif kind == "collective":
             self._collective(name, args, out)
         elif kind == "alltoall":
-            self._add("all-to-all", out, _group_size(args[-1]))
+            self._add("all-to-all", out, process_group_size(args[-1]))
         return out
 
     def _add(self, kind: str, out: torch.Tensor, g: int) -> None:
@@ -275,7 +267,7 @@ class CostMode(TorchDispatchMode):
         group = args[-1]
         g = args[-2] if name in ("all_gather_into_tensor",
                                  "reduce_scatter_tensor") \
-            else _group_size(group)
+            else process_group_size(group)
         self._add(kind, out, int(g))
 
     def kernel(self, route: str, q: torch.Tensor, k: torch.Tensor,
@@ -293,7 +285,7 @@ def _region() -> str:
     """Where a collective runs: "bwd:<autograd node>" inside the backward
     (autograd's engine runs it from C++), else "fwd:" or "opt/other:" and
     the port's innermost frame (the reference's op_name regions)."""
-    node = torch._C._current_autograd_node()
+    node = current_autograd_node()
     if node is not None:
         return "bwd:" + node.name()
     for f in reversed(traceback.extract_stack(limit=64)):

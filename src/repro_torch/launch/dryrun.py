@@ -62,6 +62,8 @@ import torch
 from ..configs import get_config, list_archs
 from ..models.api import model_parts
 from ..models.common import REMAT, dtype_of, tree_map
+from ..parallel.compat import (fake_store, memory_snapshot,
+                               record_memory_history)
 from ..parallel.sharding import PROFILES, MeshShape, P
 from .cells import (SHAPES, CellPlan, _param_count, active_param_count,
                     cell_supported, plan_cell)
@@ -100,13 +102,12 @@ def fake_world(size: int) -> None:
     """Make the default process group a fake world of `size` ranks (this
     process rank 0), replacing any other."""
     import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         if dist.get_world_size() == size and dist.get_backend() == "fake":
             return
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=fake_store(), rank=0,
                             world_size=size)
 
 
@@ -385,8 +386,8 @@ def card_step(arch: str, shape_name: str, extra: Optional[dict] = None,
     before = dict(ops.LAUNCHES_BY_KERNEL)
     t0 = time.perf_counter()
     if memory_history:
-        torch.cuda.memory._record_memory_history(
-            context="alloc", stacks="python", max_entries=200_000)
+        record_memory_history(context="alloc", stacks="python",
+                              max_entries=200_000)
         out = call()
     else:
         with trace_cost() as mode:
@@ -403,8 +404,8 @@ def card_step(arch: str, shape_name: str, extra: Optional[dict] = None,
         c = mode.cost
         res["cost"] = dict(c.summary(), kernel_calls=dict(c.kernel_calls))
     else:
-        snap = torch.cuda.memory._snapshot()
-        torch.cuda.memory._record_memory_history(enabled=None)
+        snap = memory_snapshot()
+        record_memory_history(enabled=None)
         from .memdebug import card_top_blocks
 
         res["peak_bytes"], res["top"] = card_top_blocks(snap, top)

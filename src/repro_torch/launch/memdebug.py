@@ -31,7 +31,9 @@ import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..parallel.compat import (TorchDispatchMode, active_fake_mode,
+                               current_autograd_node)
 
 __all__ = ["MemoryTrace", "card_top_blocks", "main"]
 
@@ -41,7 +43,7 @@ _PKG = "repro_torch"
 def _source() -> str:
     """The innermost frame of the port's own code ("file:line function"),
     after "bwd:<autograd node> " inside the backward."""
-    node = torch._C._current_autograd_node()
+    node = current_autograd_node()
     pre = f"bwd:{node.name()} " if node is not None else ""
     return pre + _frame()
 
@@ -119,8 +121,7 @@ class MemoryTrace(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        if torch._C._get_dispatch_mode(
-                torch._C._TorchDispatchModeKey.FAKE) is not None:
+        if active_fake_mode() is not None:
             return out  # DTensor's own shape propagation
         self.observe(func, out)
         return out

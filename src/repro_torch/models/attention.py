@@ -162,7 +162,7 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
 def _attention_on_mesh(q, k, v, rules: Optional[AxisRules], **kw):
     """`attention_op` on each rank's shard of DTensors q [B,Hq,S,D] and
     k/v [B,Hkv,S,D], laid out per `qkv_specs`."""
-    from torch.distributed.tensor.experimental import local_map
+    from ..parallel.compat import local_map
 
     mesh = q.device_mesh
     b, hq, s, d = q.shape
@@ -295,7 +295,7 @@ def _decode_attention(q, k, v, slot_pos, cfg: ModelConfig, pos: int,
     if not is_dtensor(q):
         return _decode_core(q, k, v, slot_pos, cfg, pos, local, dtype)
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from ..parallel.compat import local_map
 
     mesh = q.device_mesh
     seq = [isinstance(pl, Shard) and pl.dim == 2 for pl in k.placements]

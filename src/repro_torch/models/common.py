@@ -235,7 +235,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh=None,
     if mesh is None:
         return F.embedding(tokens, table)
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
+    from ..parallel.compat import local_map
 
     v = table.shape[0]
     spec = spec_for(tuple(tokens.shape) + (v,),
@@ -294,7 +294,7 @@ def unembed_product(x: torch.Tensor, w: torch.Tensor, mesh,
     if mesh is None:
         return x @ w
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
+    from ..parallel.compat import local_map
 
     b, s, d = x.shape
     spec = spec_for((b, s, w.shape[1]), ("batch", None, "vocab"), mesh,

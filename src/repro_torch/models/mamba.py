@@ -142,7 +142,7 @@ def _in_proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not is_dtensor(h):
         return (h @ w.reshape(d, 2 * e)).view(b, s, 2, e)
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from ..parallel.compat import local_map
 
     w = replicate_like(w, h)
     hp, wp, out, gh, gw = [], [], [], [], []

@@ -232,7 +232,7 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
         out = run(x, p["router"], p["wg"], p["wu"], p["wd"], 0, e_total)
     else:
         from torch.distributed.tensor import Partial
-        from torch.distributed.tensor.experimental import local_map
+        from ..parallel.compat import local_map
 
         e_local = e_total // mesh_axis_sizes(mesh)["model"]
         e_start = mesh.get_local_rank("model") * e_local

@@ -198,7 +198,7 @@ class WhisperModel(LanguageModel):
                                        sk)
                 # each rank's batch and heads (torch 2.11's DTensor
                 # refuses the products' flattening of two sharded dims)
-                from torch.distributed.tensor.experimental import local_map
+                from ..parallel.compat import local_map
 
                 mesh = x.device_mesh
                 pq, pk = placements(sq, mesh), placements(sk, mesh)

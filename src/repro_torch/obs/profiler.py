@@ -17,7 +17,6 @@ from contextlib import nullcontext
 from typing import Any
 
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["named_scope", "trace_annotation"]
 
@@ -30,6 +29,9 @@ def named_scope(name: str) -> torch.profiler.record_function:
 def trace_annotation(name: str) -> Any:
     """Host-interval annotation for ``torch.profiler`` captures; a no-op
     context manager when no capture is running."""
-    if _autograd_profiler._is_profiler_enabled:  # set while a capture runs
+    # imported here: the parallel package imports this module
+    from ..parallel.compat import profiler_enabled
+
+    if profiler_enabled():
         return torch.profiler.record_function(name)
     return nullcontext()

@@ -42,7 +42,7 @@ __all__ = [
 # The recorder owns the clock: span boundaries drain async device work
 # first (Span.sync, same discipline common.timed encodes), so the read
 # below is behind the sync boundary rather than racing it.
-def _now() -> float:
+def _now() -> float:  # reprolint-torch: allow[naked-clock] -- recorder-internal clock; spans sync devices before the closing read
     return time.perf_counter()
 
 

@@ -171,7 +171,7 @@ def _run_sharded(items: np.ndarray, plan: BlockPlan,
         with trace_annotation("blockwise.round"):
             outs = device_fn(torch.from_numpy(np.ascontiguousarray(
                 blk, np.int64)))
-            outs = tuple(o.cpu().numpy() for o in _as_tuple(outs))
+            outs = tuple(o.cpu().numpy() for o in _as_tuple(outs))  # reprolint-torch: allow[host-sync] -- the block's one device-to-host copy per output: run_blocks yields numpy, the reference's contract
         yield blk, outs
 
 

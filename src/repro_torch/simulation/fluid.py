@@ -461,7 +461,7 @@ def _fw_pieces(eidx, loads_rep, valid, is_min, first_edge, num_links: int,
         real = (eidx < num_links).to(w.dtype)  # [F, K, L]
         w3 = w.unflatten(-1, (eidx.shape[0], k))[..., None] * real
         rho = w.new_zeros(w.shape[:-1] + (num_links + 1,))
-        rho.index_add_(-1, eidx.reshape(-1), w3.flatten(-3))
+        rho.index_add_(-1, eidx.reshape(-1), w3.flatten(-3))  # reprolint-torch: allow[scatter-add] -- deliberate fallback for pathologically skewed incidence where the padded gather would blow memory; FlowPaths.device_arrays picks the pad path whenever it fits
         return rho[..., :num_links]
 
     def cost_of(rho):
@@ -689,7 +689,7 @@ def _fw_pieces(eidx, loads_rep, valid, is_min, first_edge, num_links: int,
         t_host = 0
         while t_host < max_iters:
             running = ~carry[4]
-            if not bool(running.any()):  # the one host read per chunk
+            if not bool(running.any()):  # reprolint-torch: allow[host-sync] -- the one host read per 32-step chunk: the certified loop stops once every load is decided
                 break
             new = chunk(carry, t_host)
             carry = _where_tree(running, new, carry) if batch else new
@@ -993,7 +993,7 @@ def _cert_trace(mode, kind, tr, brackets=None):
     form from `_certified_saturation`; each probe's valid prefix is
     trimmed by its `cnt` and the iteration axis is made cumulative
     across probes."""
-    titer, tgap, tmu, tlb, tub, tgm, cnt = (np.asarray(x) for x in tr)
+    titer, tgap, tmu, tlb, tub, tgm, cnt = (np.asarray(x) for x in tr)  # reprolint-torch: allow[host-sync] -- tr holds the numpy copies `_host` made after the solve
     if titer.ndim == 1:
         titer, tgap, tmu, tlb, tub, tgm = (
             a[None] for a in (titer, tgap, tmu, tlb, tub, tgm))
@@ -1024,7 +1024,7 @@ def _fw_trace(mode, yss, brackets=None):
     rows = []
     offset = 0
     for p, ys in enumerate(yss):
-        gap, mu, gm = (np.asarray(a, np.float64) for a in ys)
+        gap, mu, gm = (np.asarray(a, np.float64) for a in ys)  # reprolint-torch: allow[host-sync] -- ys holds the numpy copies `_host` made after the solve
         n = gap.shape[0]
         nan = np.full(n, np.nan)
         rows.append((np.full(n, p, np.int64),
@@ -1227,7 +1227,7 @@ def truncation_error(fp, offered: float, iters: int = 250,
     return float(_truncation_gap(fp, float(offered), iters, dev))
 
 
-def latency_curve(fp, loads, iters: int = 250, engine: str = "batched",
+def latency_curve(fp, loads, iters: int = 250, engine: str = "batched",  # reprolint-torch: allow[host-sync] -- host assembly: its loops run over the caller's loads and the numpy copies `_host` made after the one device call
                   certify: bool = False, util_tol: float = None,
                   dtype: str = None, cert_iters: int = None,
                   trace: bool = False, device="cuda"):

@@ -95,7 +95,7 @@ class DirectedEdges:
         return len(self.offsets) - 1
 
     @property
-    def table(self) -> np.ndarray:
+    def table(self) -> np.ndarray:  # reprolint-torch: allow[dense-square] -- lazy small-n reference view; nothing on the path-construction hot path touches it
         """Dense [n, n] int32 lookup: table[u, v] = directed edge id, -1 if
         (u, v) is not an edge.  Built lazily, O(n^2) memory.  Kept as the
         small-n reference view; nothing on the path-construction hot path
@@ -125,7 +125,7 @@ class DirectedEdges:
         dense tables are never needed."""
         qa = np.asarray(u, dtype=np.int64) * self.n + np.asarray(v)
         if self.num == 0:
-            return np.full(qa.shape, -1, dtype=np.int32)
+            return np.full(qa.shape, -1, dtype=np.int32)  # reprolint-torch: allow[sentinel] -- -1 here means 'no such directed edge' (lookup miss), not an unreachable distance
         q = qa.ravel()
         pos = np.searchsorted(self.keys, q)
         safe = np.minimum(pos, self.num - 1)
@@ -431,10 +431,10 @@ def _cvaliant_assemble(de: DirectedEdges, s_arr: np.ndarray,
     """
     fb = len(s_arr)
     k_take = min(k_alt, sel_nb.shape[1])
-    sel = np.full((fb, k_alt), -1, dtype=np.int64)
+    sel = np.full((fb, k_alt), -1, dtype=np.int64)  # reprolint-torch: allow[sentinel] -- -1 pads empty candidate slots; masked out by slot_ok before use
     sel[:, :k_take] = sel_nb[:, :k_take]
     n_sel = np.minimum(cnt, k_alt)  # [F]
-    slot_ok = np.arange(k_alt)[None, :] < n_sel[:, None]  # [F, K]
+    slot_ok = np.arange(k_alt)[None, :] < n_sel[:, None]  # [F, K]  # reprolint-torch: allow[dense-square] -- [F, K] flow-by-candidate mask (K = k_alt, small constant), not an [n, n] matrix
     safe_sel = np.where(slot_ok, sel, d_arr[:, None])  # route-safe filler
     d_rep = np.broadcast_to(d_arr[:, None], (fb, k_alt)).reshape(-1)
     e2, h2 = walk(safe_sel.reshape(-1), d_rep)
@@ -710,7 +710,7 @@ def _build_blocked(rt, pattern: TrafficPattern, mode: str,
         block = min(block, rt_block)
     col = 1 if include_min else 0
 
-    min_e = np.full((f, diam), -1, dtype=np.int32)
+    min_e = np.full((f, diam), -1, dtype=np.int32)  # reprolint-torch: allow[sentinel] -- -1 pads unused hop slots of the [F, diam] edge matrix; consumers mask on hop count
     min_h = np.zeros(f, dtype=np.int32)
     if alt_kind in ("valiant", "cvaliant"):
         s_rep = np.broadcast_to(src[:, None], (f, k_alt)).reshape(-1)

@@ -82,7 +82,7 @@ def _label_logits(logits: torch.Tensor,
     if not is_dtensor(logits):
         return logits.gather(-1, targets[..., None])[..., 0]
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from ..parallel.compat import local_map
 
     mesh, v = logits.device_mesh, logits.shape[-1]
     vocab = [isinstance(p, Shard) and p.dim % logits.dim() == logits.dim() - 1

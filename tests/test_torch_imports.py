@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 missing = sorted(set(%r) - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 80 else 0)
+sys.exit(1 if bad or missing or len(names) < 93 else 0)
 """ % (sorted([
     # the analysis slice: the §IX APSP and §IV-D routing-table entry
     # points, their kernels' wrappers, the structural metrics and the
@@ -91,6 +91,20 @@ sys.exit(1 if bad or missing or len(names) < 80 else 0)
     "repro_torch.launch.dryrun",
     "repro_torch.launch.collbreak",
     "repro_torch.launch.memdebug",
+    # the last slice: the port's linter (stdlib-only) and its torch shim
+    "repro_torch.analysis",
+    "repro_torch.analysis.lint",
+    "repro_torch.analysis.pragmas",
+    "repro_torch.analysis.report",
+    "repro_torch.analysis.rules",
+    "repro_torch.analysis.rules.base",
+    "repro_torch.analysis.rules.compat_shim",
+    "repro_torch.analysis.rules.dense_square",
+    "repro_torch.analysis.rules.host_sync",
+    "repro_torch.analysis.rules.naked_clock",
+    "repro_torch.analysis.rules.scatter_add",
+    "repro_torch.analysis.rules.sentinel",
+    "repro_torch.parallel.compat",
 ]),)
 
 
@@ -105,6 +119,25 @@ def test_port_imports_neither_jax_nor_repro():
                           env=_env(), capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    # the obs package and what imports it first on the card's paths, and
+    # every module that imports the torch shim (`parallel/__init__`
+    # imports blockwise, which imports obs: an import of the shim at
+    # obs's import time was a cycle)
+    "repro_torch.obs", "repro_torch.obs.profiler",
+    "repro_torch.kernels.minplus.ops", "repro_torch.parallel.compat",
+    "repro_torch.launch.cost", "repro_torch.launch.memdebug",
+    "repro_torch.launch.dryrun", "repro_torch.models.common",
+    "repro_torch.analysis.lint"])
+def test_module_imports_first(module):
+    """Each imports in a fresh interpreter before anything else of the
+    port, as chip_smoke.py's phases import them."""
+    proc = subprocess.run([sys.executable, "-c", f"import {module}"],
+                          cwd=REPO_ROOT, env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_fails_without_cuda():
