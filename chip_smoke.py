@@ -205,10 +205,20 @@ development run that then fails for the kernels it did not launch):
              and falling by at least 0.5, tokens/s, peak memory, a
              torch.profiler breakdown of one more step (the backward
              kernel's share) and its forward / backward / optimizer
-             split; float32 without remat (B = 2, S = 512, 3 steps: 24
-             CUDA-core forward and 24 CUDA-core backward launches a
-             step, finite and
-             falling); one float32 step at full width and 2 layers (B =
+             split beside TRAIN_BEFORE_UNBIND's, the first loss equal to
+             TRAIN_BEFORE_UNBIND's (the layers' stacked parameters are
+             taken apart by one unbind a leaf, which must not move it)
+             and no select_backward writing a whole layer stack in the
+             step's backward (one stack a stacked leaf); remat "2level"
+             on the same model, state and batch (6 outer groups of 4),
+             two steps from the initial state beside two of "full": the
+             losses and every gradient leaf bit for bit "full"'s, 66 sm90
+             and 24 tensor-core backward launches a step (each layer's
+             forward, then its outer group's recompute, which stops at
+             the group's last input, then its own), wall ms, device ms
+             and peak memory beside "full"'s; float32 without remat (B =
+             2, S = 512, 3 steps: 24 CUDA-core forward and 24 CUDA-core
+             backward launches a step, finite and falling); one float32 step at full width and 2 layers (B =
              2, S = 128, TF32 off) on the card against the CPU (loss
              within 1e-5 relative, grad norm 1e-4, every gradient leaf
              within 1e-4 of its largest magnitude, every attention weight
@@ -391,6 +401,16 @@ CONSISTENCY_LAYERS = {GEMMA: CONSISTENCY["layers"], "deepseek-moe-16b": 4,
 # B = 2, S = 128, the card against the CPU (and the restart)
 TRAIN = {"arch": "qwen2-0.5b", "batch": 4, "seq": 2048, "steps": 11,
          "lr": 1e-3, "warmup": 10}
+# the bf16 run's first loss, and its forward / backward / optimizer split
+# (device ms, CUDA events), as the layers' per-layer t[i] views of the
+# stacked parameters gave them (PERF.md §5-6): one unbind a stacked leaf
+# must not move the loss
+TRAIN_BEFORE_UNBIND = {"loss_first": 12.289473533630371,
+                       "split_ms": {"forward_ms": 97.0, "backward_ms": 186.9,
+                                    "optimizer_ms": 34.7}}
+# remat "2level" beside "full" on the bf16 model: steps from the initial
+# state
+TRAIN_2LEVEL = {"steps": 2}
 TRAIN_FP32 = {"batch": 2, "seq": 512, "steps": 3}
 TRAIN_CHECK = {"layers": 2, "batch": 2, "seq": 128, "loss_rel": 1e-5,
                "norm_rel": 1e-4, "leaf_of_max": 1e-4}
@@ -1941,13 +1961,15 @@ def scope_device_ms(events, scopes):
     return out
 
 
-def device_time_by_kernel(torch, fn, scopes=()):
+def device_time_by_kernel(torch, fn, scopes=(), ops=()):
     """Run `fn` once under torch.profiler: {"wall_ms", "device_ms" (the sum
     of the device's kernel and copy times), "kernels" (their number),
     "flash_ms" (both flash-attention kernels), "top" (the largest by
     device time), "scopes" (the device ms of the kernels that ran inside
     each `named_scope` whose name starts with one of `scopes`, e.g.
-    "moe.experts": `scope_device_ms`)}.
+    "moe.experts": `scope_device_ms`), "ops" (for each aten op named in
+    `ops`, e.g. "aten::select_backward", its calls and the device ms of
+    the kernels it launched)}.
     An error of `fn` (a kernel's launch or a CUDA fault) propagates; one of
     the profiler itself is reported in the result under "error", since the
     breakdown checks nothing."""
@@ -1979,7 +2001,13 @@ def device_time_by_kernel(torch, fn, scopes=()):
             and not getattr(evt, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
+    by_op = {name: {"calls": 0, "device_ms": 0.0} for name in ops}
+    for evt in events:
+        if evt.key in by_op and evt.device_type == DeviceType.CPU:
+            by_op[evt.key]["calls"] += evt.count
+            by_op[evt.key]["device_ms"] += evt.device_time_total / 1e3
     return {"wall_ms": wall * 1e3, "device_ms": total, "scopes": named,
+            "ops": by_op,
             "kernels": sum(r[2] for r in rows),
             "flash_ms": sum(r[1] for r in rows
                             if "flash_attention_kernel" in r[0]
@@ -2568,6 +2596,106 @@ def step_split_ms(torch, model, opt, st, batch):
             "optimizer_ms": ev[2].elapsed_time(ev[3])}
 
 
+def stacked_writes(torch, model, params, batch):
+    """{"select_backward": n, "stack": m}: the ops of one `value_and_grad`
+    of `model` at `params` on `batch` whose output is a whole layer stack
+    (leading dim the stacked layers'), counted by a dispatch mode (which
+    autograd's thread inherits).  Per-layer t[i] views write a zero-filled
+    stack a layer and leaf (select_backward); one unbind a leaf writes one
+    stack."""
+    from repro_torch.parallel.compat import TorchDispatchMode
+    from repro_torch.train.train_step import value_and_grad
+
+    n = model.cfg.num_layers
+    counts = {"select_backward": 0, "stack": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in counts and isinstance(out, torch.Tensor) \
+                    and out.dim() > 1 and out.shape[0] == n:
+                counts[name] += 1
+            return out
+
+    with Count():
+        value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    return counts
+
+
+def train_two_level(torch, model, opt, pipe, ops, check):
+    """remat "2level" on `model`'s parameters (shared, not copied) beside
+    `model` ("full"): TRAIN_2LEVEL["steps"] steps of each from the initial
+    state on `pipe`'s fixed batch -- the losses and the first step's
+    gradients bit for bit, the flash launches a step against what the
+    path implies, wall ms, the device ms of one profiled step and
+    ``max_memory_allocated`` of each."""
+    from repro_torch.models.api import model_parts
+    from repro_torch.models.common import tree_items, two_level_split
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.train_step import value_and_grad
+
+    cfg = model.cfg
+    n, g = cfg.num_layers, len(cfg.layer_pattern)
+    outer, inner = two_level_split(n // g)
+    two = model_parts(cfg)[1](cfg, model.params.tree(), remat="2level")
+    # each layer's forward runs once, again in its outer group's recompute
+    # (non-reentrant checkpoint stops that recompute once it holds what
+    # the outer group saved: inner - 1 of its groups run, the last
+    # group's input is the last saved tensor) and again in its own
+    want = {"full": {"sm90": 2 * n, "simt": 0, "bwd": 0, "bwd_sm90": n},
+            "2level": {"sm90": 2 * n + outer * (inner - 1) * g, "simt": 0,
+                       "bwd": 0, "bwd_sm90": n}}
+    batch = pipe.batch_at(0)
+    out, grads, losses = {"outer": outer, "inner": inner,
+                          "launches_expected": want}, {}, {}
+    for name, m in (("full", model), ("2level", two)):
+        st = init_state(m, opt)
+        loss, gr = value_and_grad(m, st["params"], batch)
+        if name == "full":
+            grads["full"] = gr
+        else:
+            same = [torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8))
+                    for (_, a), (_, b) in zip(tree_items(grads["full"]),
+                                              tree_items(gr))]
+            out["grads_bit_identical"] = check(
+                all(same), f"2level gradients differ from full's in "
+                f"{same.count(False)} of {len(same)} leaves")
+            out["grad_leaves"] = len(same)
+        del gr
+        step_fn = make_train_step(m, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts(ops)
+        st, rows = run_steps(torch, step_fn, st, pipe,
+                             TRAIN_2LEVEL["steps"], f"bf16 {name}", ops)
+        peak = torch.cuda.max_memory_allocated()
+        losses[name] = [r["loss"] for r in rows]
+        launches = dict(ops.LAUNCHES_BY_KERNEL)
+        prof = device_time_by_kernel(torch, lambda: step_fn(st, batch))
+        out[name] = {
+            "steps": rows, "wall_ms": [r["wall_ms"] for r in rows],
+            "device_ms": prof.get("device_ms"), "profile": prof,
+            "max_memory_allocated": peak,
+            "launches_ok": check(all(r["flash_launches"] == want[name]
+                                     for r in rows),
+                                 f"{name} flash launches a step "
+                                 f"{[r['flash_launches'] for r in rows]}, "
+                                 f"not {want[name]}")}
+        if name == "2level":
+            out["launches_2level"] = launches
+        del st, step_fn
+        torch.cuda.empty_cache()
+    out["losses"] = losses
+    out["losses_bit_identical"] = check(
+        losses["2level"] == losses["full"],
+        f"2level losses {losses['2level']} differ from full's "
+        f"{losses['full']}")
+    return out
+
+
 def phase_train(torch, state):
     """The training path (`train.make_train_step` as `launch.train` builds
     it): the backward kernels' holds and times (`kernel_flash_bwd`);
@@ -2634,8 +2762,11 @@ def phase_train(torch, state):
     per_step = {"sm90": 2 * n, "simt": 0, "bwd": 0, "bwd_sm90": n}
     batch = pipe.batch_at(0)
     prof = device_time_by_kernel(torch, lambda: step_fn(st, batch),
-                                 ("train.",))
+                                 ("train.",), ("aten::select_backward",
+                                               "aten::stack"))
     split = step_split_ms(torch, model, opt, st, batch)
+    stacked = stacked_writes(torch, model, st["params"], batch)
+    stacked_leaves = sum(1 for _, t in tree_items(st["params"]["layers"]))
     out["bf16"] = {
         "config": {**config_record(cfg), "remat": "full", "optimizer":
                    "AdamW(cosine_schedule(1e-3, 10, steps), weight_decay=0)",
@@ -2655,7 +2786,18 @@ def phase_train(torch, state):
                              f"flash launches a step "
                              f"{[r['flash_launches'] for r in rows]}, "
                              f"not {per_step}"),
+        "loss_first_before_unbind": TRAIN_BEFORE_UNBIND["loss_first"],
+        "loss_first_ok": check(
+            losses[0] == TRAIN_BEFORE_UNBIND["loss_first"],
+            f"bf16 first loss {losses[0]!r}, not "
+            f"{TRAIN_BEFORE_UNBIND['loss_first']!r}"),
+        "stacked_writes": stacked, "stacked_leaves": stacked_leaves,
+        "stacked_writes_ok": check(
+            stacked == {"select_backward": 0, "stack": stacked_leaves},
+            f"whole-stack writes in a step's backward {stacked}, not one "
+            f"stack for each of {stacked_leaves} stacked leaves"),
         "profile": prof, "split_ms": split,
+        "split_ms_before_unbind": TRAIN_BEFORE_UNBIND["split_ms"],
         "backward_kernel_share": prof.get("flash_bwd_ms", 0.0)
         / prof["device_ms"] if prof.get("device_ms") else None,
         "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}
@@ -2664,7 +2806,18 @@ def phase_train(torch, state):
         "qwen2-0.5b train bf16"] = launches["bwd_sm90"]
     state.setdefault("flash_sm90_launches_by_path", {})[
         "qwen2-0.5b train bf16"] = launches["sm90"]
-    del model, st, step_fn, pipe, batch
+    del st, step_fn
+    torch.cuda.empty_cache()
+
+    # remat "2level" beside "full" on the same model, state and batch
+    two = train_two_level(torch, model, opt, pipe, ops, check)
+    out["remat_2level"] = two
+    path = f"qwen2-0.5b train bf16 2level ({TRAIN_2LEVEL['steps']} steps)"
+    state["flash_sm90_launches_by_path"][path] = two["launches_2level"][
+        "sm90"]
+    state["flash_bwd_sm90_launches_by_path"][path] = two["launches_2level"][
+        "bwd_sm90"]
+    del model, pipe, batch
     torch.cuda.empty_cache()
 
     # the same model in float32 without remat

@@ -12,7 +12,7 @@ backward (autograd's engine runs the backward from C++), or "opt/other:"
 (the optimizer), the reference's op_name regions.
 
   PYTHONPATH=src python -m repro_torch.launch.collbreak --hbm-gb 80 \
-      --arch X --shape Y [--multipod] [--top 15]
+      --arch X --shape Y [--multipod] [--top 15] [--remat full|2level|none]
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from __future__ import annotations
 import argparse
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
+
+from ..models.common import REMAT
 
 __all__ = ["breakdown", "main"]
 
@@ -49,6 +51,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--seq-parallel", dest="sp", default=None,
                     choices=["on", "off"])
+    ap.add_argument("--remat", default=None, choices=list(REMAT),
+                    help="in place of the plan's remat")
     ap.add_argument("--hbm-gb", type=float, default=None,
                     help="device memory where no card is present")
     ap.add_argument("--link-gbps", type=float, default=dryrun.LINK_GBPS,
@@ -60,6 +64,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         extra["num_microbatches"] = args.microbatches
     if args.sp:
         extra["seq_parallel"] = args.sp == "on"
+    if args.remat:
+        extra["remat"] = args.remat
     _, mode, _, _, _ = dryrun.trace_cell(
         args.arch, args.shape, "multipod" if args.multipod else "pod",
         _hbm(ap, args.hbm_gb), extra or None, collectives=True)

@@ -142,8 +142,7 @@ def _cell_call(cfg, plan: CellPlan, shape_name: str, mesh, device,
     `device` ("meta": empty parameters from the `defs` table; else
     random ones from seed 0), on `mesh` (None: one device), and the
     tensors the call is given; `batch` in place of the shape's global
-    batch.  ``remat`` is what ran: the reference's "2level"
-    (sqrt-checkpointing at >= 100B) is not ported, and runs "full"."""
+    batch.  ``remat`` is what ran: the plan's."""
     from ..models import build_model
     from ..train import AdamW, make_train_step
     from ..train.elastic import reshard_state
@@ -152,7 +151,7 @@ def _cell_call(cfg, plan: CellPlan, shape_name: str, mesh, device,
     sh = SHAPES[shape_name]
     b, s = batch or sh["batch"], sh["seq"]
     rules = PROFILES[plan.profile]
-    remat = plan.remat if plan.remat in REMAT else "full"
+    remat = plan.remat
     dtype = dtype_of(cfg.dtype)
     defs, cls = model_parts(cfg)
     if device.type == "meta":
@@ -426,7 +425,7 @@ def main(argv=None):
                     choices=["on", "off"])
     ap.add_argument("--profile", default=None,
                     choices=["tp2d", "fsdp", "fsdp_ep"])
-    ap.add_argument("--remat", default=None, choices=["none", "full"])
+    ap.add_argument("--remat", default=None, choices=list(REMAT))
     ap.add_argument("--tag", default="")
     ap.add_argument("--hbm-gb", type=float, default=None,
                     help="device memory in GB where no card is present "

@@ -18,7 +18,8 @@ buffers of a compiled cell.  Two modes here:
     Without CUDA it raises.
 
   PYTHONPATH=src python -m repro_torch.launch.memdebug --hbm-gb 80 \
-      --arch qwen2-0.5b --shape train_4k [--multipod] [--top 25]
+      --arch qwen2-0.5b --shape train_4k [--multipod] [--top 25] \
+      [--remat full|2level|none]
   PYTHONPATH=src python -m repro_torch.launch.memdebug --card \
       --arch qwen2-0.5b --shape train_4k [--batch 8 --microbatches 8]
 """
@@ -32,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..models.common import REMAT
 from ..parallel.compat import (TorchDispatchMode, active_fake_mode,
                                current_autograd_node)
 
@@ -219,6 +221,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--remat", default=None, choices=list(REMAT),
+                    help="in place of the plan's remat")
     ap.add_argument("--hbm-gb", type=float, default=None,
                     help="device memory when no card is present")
     ap.add_argument("--card", action="store_true",
@@ -227,8 +231,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="with --card: this many sequences in place of the "
                          "cell's global batch")
     args = ap.parse_args(argv)
-    extra = {"num_microbatches": args.microbatches} \
-        if args.microbatches else None
+    extra = {"num_microbatches": args.microbatches,
+             "remat": args.remat}
     from . import dryrun
 
     if args.card:

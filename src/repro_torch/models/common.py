@@ -23,10 +23,16 @@ The models' ``forward`` runs under the caller's grad mode, so a train
 step differentiates it functionally (``torch.func.functional_call`` with
 leaves in place of the frozen `ParamTree` parameters; `train.train_step`).
 Where autograd records, ``remat="full"`` (the JAX package's default)
-recomputes each layer in the backward (`LanguageModel._layer_call`), and
-the few in-place steps of the inference path take an out-of-place form
-(here `_unembed`'s softcap).  Serve runs under ``inference_mode`` and is
-unchanged.
+recomputes each layer in the backward (`LanguageModel._layer_call`),
+``remat="2level"`` nests the transformer's scanned groups two checkpoints
+deep (`LanguageModel._two_level`), and the few in-place steps of the
+inference path take an out-of-place form (here `_unembed`'s softcap).
+Serve runs under ``inference_mode`` and is unchanged.
+
+A model takes its stacked layers apart once a call (`unstack`: one
+``unbind`` a leaf), so the backward writes each stacked gradient once, as
+the reference's ``lax.scan`` does, where a ``t[i]`` view a layer would
+write a zero-filled stack a layer and sum them.
 """
 
 from __future__ import annotations
@@ -51,11 +57,12 @@ __all__ = ["ParamDef", "init_params", "init_stacked", "param_specs",
            "embed_lookup", "unembed_product", "logits_constrain",
            "sp_boundary", "sp_constrain",
            "tree_map", "tree_leaves", "tree_items", "tree_from_items",
-           "records_grad", "ParamTree", "LanguageModel", "REMAT",
+           "records_grad", "unstack", "two_level_split", "ParamTree",
+           "LanguageModel", "REMAT",
            "mesh_forward", "mesh_inference", "write_into", "write_slot",
            "sharded_full"]
 
-REMAT = ("full", "none")
+REMAT = ("full", "2level", "none")
 
 # fill a large tensor this many elements at a time, so the float32 draw
 # beside a bfloat16 [layers, d, d_ff] stack stays small
@@ -126,6 +133,72 @@ def records_grad(*tensors) -> bool:
     of them requires grad."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def unstack(tree: Any) -> list:
+    """The per-layer trees of `tree`, whose leaves are stacked over a
+    leading layers dim: each leaf taken apart once with ``unbind(0)``, so
+    autograd writes the stacked gradient once (``stack``), with each
+    layer's bits (a ``-0.0`` kept), where ``t[i]`` a layer writes a
+    zero-filled stack a layer and sums them.  On a mesh the layers dim
+    is never sharded, and each piece keeps the leaf's placements on its
+    other dims (`LanguageModel._layer_call` lays its gradient out so)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    n = len(next(tree_leaves(parts)))
+    return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
+
+
+def _grads_in_layout(tree: Any) -> Any:
+    """`tree` with each DTensor leaf that requires grad passed through
+    `_GradAsInput`, so its gradient is laid out as the leaf (on a mesh of
+    one device every layout is the whole tensor: left as it is)."""
+    return tree_map(lambda t: _GradAsInput.apply(t) if is_dtensor(t)
+                    and t.requires_grad and t.device_mesh.size() > 1
+                    else t, tree)
+
+
+class _GradAsInput(torch.autograd.Function):
+    """The identity on a DTensor, whose backward lays the gradient out as
+    the input.  A layer's weight gradient leaves its matmul partial over
+    the batch's mesh dims or laid out as the activations were (16x a
+    shard of nemotron-4-340b's FFN weights on the pod); the reference's
+    scan writes the stacked gradient in the parameter's layout.  Applied
+    where a layer starts (`LanguageModel._layer_call`): autograd runs the
+    ready node made last first, so its backward runs as soon as its
+    layer's has (made with the unbind, before every layer, it ran after
+    all of them, and every layer's gradient waited in its matmul's
+    layout)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.layout = (t.device_mesh, t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.layout)
+
+
+def _tensors(obj):
+    """The tensors in nested dicts, lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (dict, list, tuple)):
+        for v in (obj.values() if isinstance(obj, dict) else obj):
+            yield from _tensors(v)
+
+
+def two_level_split(groups: int) -> Tuple[int, int]:
+    """(outer, inner) of ``remat="2level"`` over `groups` scanned groups,
+    the reference's: inner the largest divisor of `groups` not above
+    ``int(sqrt(groups))`` (1 where none is), outer ``groups // inner``;
+    24 groups give (6, 4), 96 give (12, 8)."""
+    inner = 1
+    for cand in range(int(np.sqrt(groups)), 0, -1):
+        if groups % cand == 0:
+            inner = cand
+            break
+    return groups // inner, inner
 
 
 def _init_one(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
@@ -464,7 +537,9 @@ class LanguageModel(nn.Module):
     """What the port's LMs share: `params` checked against their table
     `table` (shapes, name for name) and held as frozen parameters, the
     embedding and unembedding the JAX models compute alike, and `remat`
-    ("full": each layer recomputed in the backward; "none").
+    ("full": each layer recomputed in the backward; "2level": the
+    transformer's sqrt-checkpointing, `_two_level`, and no checkpoint in
+    the families whose reference checks for "full" alone; "none").
 
     With a `mesh` the parameters are DTensors placed per `param_pspecs`
     under `rules` (default `DEFAULT_RULES`): a plain leaf is the global
@@ -534,16 +609,48 @@ class LanguageModel(nn.Module):
                                            self.mesh, spec_of[path])))
         return tree_from_items(out)
 
-    def _layer_call(self, fn: Callable, p, x: torch.Tensor, *args):
-        """``fn(p, x, *args)``, one layer.  Where autograd records and
-        `remat` is "full", under ``torch.utils.checkpoint`` (non-reentrant):
-        the backward runs the layer again instead of keeping its
-        activations, as the reference's ``jax.checkpoint`` does; no layer
-        draws random numbers, so no RNG state is kept."""
-        if self.remat == "full" and records_grad(x, *tree_leaves(p)):
+    @staticmethod
+    def _remat_call(on: bool, fn: Callable, p, x: torch.Tensor, *args):
+        """``fn(p, x, *args)``; where `on` and autograd records (on `x` or
+        a tensor in `p`: nested dicts, lists and tuples), under
+        ``torch.utils.checkpoint`` (non-reentrant): the backward runs `fn`
+        again instead of keeping its activations, as the reference's
+        ``jax.checkpoint`` does; no layer draws random numbers, so no RNG
+        state is kept."""
+        if on and records_grad(x, *_tensors(p)):
             return checkpoint(fn, p, x, *args, use_reentrant=False,
                               preserve_rng_state=False)
         return fn(p, x, *args)
+
+    def _layer_call(self, fn: Callable, p, x: torch.Tensor, *args):
+        """``fn(p, x, *args)``, one layer, recomputed in the backward
+        where `remat` is "full" (`_remat_call`); on a mesh each parameter's
+        gradient is laid out as the parameter as soon as the layer's
+        backward is done (`_GradAsInput`)."""
+        return self._remat_call(self.remat == "full", fn,
+                                _grads_in_layout(p), x, *args)
+
+    def _two_level(self, group: Callable, groups: list,
+                   x: torch.Tensor) -> torch.Tensor:
+        """x through every scanned group in order, ``group(gp, x)`` running
+        the one of parameters `gp`, under the reference's
+        sqrt-checkpointing (``remat="2level"``): the groups split into
+        `two_level_split`'s outer groups of `inner`, each group under a
+        checkpoint and each outer group under another around them, so the
+        forward keeps the outer boundaries alone and the backward runs
+        each layer's forward twice more (an outer group's recompute stops
+        at its last group's input, which its own recompute then takes
+        over)."""
+        _, inner = two_level_split(len(groups))
+
+        def outer(ogs, x):
+            for gp in ogs:
+                x = self._remat_call(True, group, gp, x)
+            return x
+
+        for start in range(0, len(groups), inner):
+            x = self._remat_call(True, outer, groups[start:start + inner], x)
+        return x
 
     @property
     def device(self) -> torch.device:

@@ -18,11 +18,13 @@ in place of the reference's ``lax.associative_scan``); decode carries
 cache per attention layer, both updated in place.  Attention is always
 local (windowed MQA) and goes through the flash-attention kernel in the
 prefill.  The embeddings are tied and scaled by sqrt(d_model); there is no
-final softcap, as in the reference.  ``remat`` recomputes each block in
-the backward.  On a ``mesh`` the parameters are DTensors placed per
-`param_pspecs` and the blocks carry the reference's anchors
-(`sp_boundary` around the mixers and MLPs, `sp_constrain` after each
-group); `init_cache` lays the decode cache out per `cache_specs` and
+final softcap, as in the reference.  The stacked leaves are taken apart
+once a call (`common.unstack`).  ``remat="full"`` recomputes each block
+in the backward; "2level" recomputes none, as the reference, whose
+``forward`` checks for "full" alone.  On a ``mesh`` the parameters are
+DTensors placed per `param_pspecs` and the blocks carry the reference's
+anchors (`sp_boundary` around the mixers and MLPs, `sp_constrain` after
+each group); `init_cache` lays the decode cache out per `cache_specs` and
 `decode_step` runs on the mesh too.
 """
 
@@ -39,7 +41,7 @@ from . import attention as attn
 from . import mlp as ffn
 from .common import (LanguageModel, ParamDef, mesh_forward, mesh_inference,
                      records_grad, rms_norm, sp_constrain, stack_defs,
-                     tree_map, write_into)
+                     tree_map, unstack, write_into)
 from .config import ModelConfig
 from .rope import default_positions
 
@@ -239,18 +241,21 @@ class GriffinLM(LanguageModel):
         return x + ffn.mlp_apply(p["mlp"], h, cfg)
 
     def _layers(self, p, cache=None):
-        """("rec" or "att", parameters, cache) for every layer in order, as
-        views; the caches are None without `cache`."""
+        """("rec" or "att", parameters, cache) for every layer in order: the
+        parameters taken apart once (`unstack`), the caches as views
+        (decode writes into them; None without `cache`)."""
         def at(tree, *i):
             return None if tree is None else tree_map(lambda a: a[i], tree)
 
         c = cache or {}
+        rec, att = unstack(p["rec"]), unstack(p["att"])
         for g in range(_groups(self.cfg)):
             for j in range(2):
-                yield "rec", at(p["rec"], 2 * g + j), at(c.get("rec"), g, j)
-            yield "att", at(p["att"], g), at(c.get("att"), g)
-        for t in range(_tail(self.cfg)):
-            yield "rec", at(p["tail"], t), at(c.get("tail"), t)
+                yield "rec", rec[2 * g + j], at(c.get("rec"), g, j)
+            yield "att", att[g], at(c.get("att"), g)
+        tail = unstack(p["tail"]) if _tail(self.cfg) else []
+        for t, lp in enumerate(tail):
+            yield "rec", lp, at(c.get("tail"), t)
 
     # -- forward ---------------------------------------------------------
     @mesh_forward

@@ -8,18 +8,24 @@ layers -- so `convert.params_from_reference` is a name-for-name copy.
 
 Prefill runs the selective scan chunk by chunk, as the reference does:
 the discretized [B, chunk, E, N] tensors exist one chunk at a time, in
-float32, and the state is carried from chunk to chunk.  Inside a chunk
-the recurrence is `griffin.lru_scan` (a log-depth Hillis-Steele scan) in
-place of the reference's ``lax.associative_scan``.  Decode is the O(1)
+float32, and the state is carried from chunk to chunk; where autograd
+records, each chunk runs under a checkpoint, as the reference's
+``jax.checkpoint(chunk_step)``, so a train step keeps no chunk's
+transients for the backward.  Inside a chunk the recurrence is
+`griffin.lru_scan` (a log-depth Hillis-Steele scan) in place of the
+reference's ``lax.associative_scan``.  Decode is the O(1)
 recurrent step on the reference's cache (``conv`` [L, B, k-1, E] in the
 model dtype, ``ssm`` [L, B, E, N] float32), updated in place.  The
 reference unembeds with the embedding's transpose whatever
-``tie_embeddings`` says, and so does this model.  ``remat`` recomputes
-each layer in the backward.  On a ``mesh`` the parameters are DTensors
-placed per `param_pspecs` and each layer carries the reference's anchors
-(`sp_boundary` around the mixer, `sp_constrain` on the residual);
-`init_cache` lays the decode cache out per `cache_specs` and
-`decode_step` runs on the mesh too.
+``tie_embeddings`` says, and so does this model.  The stacked leaves are
+taken apart once a call (`common.unstack`).  ``remat="full"`` recomputes
+each layer in the backward; "2level" recomputes none, as the reference,
+whose ``forward`` checks for "full" alone (the chunk checkpoints stay).
+On a ``mesh`` the parameters are DTensors placed per `param_pspecs`, each
+layer carries the reference's anchors (`sp_boundary` around the mixer,
+`sp_constrain` on the residual) and the softplus runs on each rank's
+shard (`softplus`); `init_cache` lays the decode cache out per
+`cache_specs` and `decode_step` runs on the mesh too.
 """
 
 from __future__ import annotations
@@ -28,19 +34,56 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..obs.profiler import named_scope
 from ..parallel.sharding import (DEFAULT_RULES, AxisRules, is_dtensor,
                                  replicate_like, spec_for)
 from .common import (LanguageModel, ParamDef, embed_lookup, mesh_forward,
                      mesh_inference, records_grad, rms_norm, sp_constrain,
-                     stack_defs, write_into)
+                     stack_defs, unstack, write_into)
 from .config import ModelConfig
 from .griffin import lru_scan
 
-__all__ = ["MambaLM", "defs", "cache_specs", "selective_scan"]
+__all__ = ["MambaLM", "defs", "cache_specs", "selective_scan", "softplus"]
 
 _CHUNK = 256
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus`` (``x`` above 20, else ``log1p(exp(x))``: no overflow).
+    On a DTensor under ``local_map`` on each rank's shard, forward and
+    backward (a Partial input reduced first): DTensor shards softplus's
+    forward by its decomposition but has no strategy for its backward,
+    which then gathers the whole tensor on every rank."""
+    if not is_dtensor(x):
+        return F.softplus(x)
+    from torch.distributed.tensor import Replicate
+    from ..parallel.compat import local_map
+
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    return local_map(F.softplus, out_placements=pl, in_placements=(pl,),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
+def _chunk(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+           af: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """One chunk of `selective_scan`: the state h [B, E, N] and the
+    chunk's x, dt [B, cs, E], b, c [B, cs, N] -> (y [B, cs, E] float32
+    without the skip term, the state after the chunk)."""
+    dtf = dt.float()
+    da = torch.exp(dtf[..., None] * af)  # [B, cs, E, N]
+    dbx = (dtf * x.float())[..., None] * b[:, :, None, :].float()
+    if records_grad(dbx, da, h) or is_dtensor(dbx):
+        dbx = torch.cat([torch.addcmul(dbx[:, :1], da[:, :1], h[:, None]),
+                         dbx[:, 1:]], dim=1)
+    else:
+        dbx[:, 0].addcmul_(da[:, 0], h)
+    hs = lru_scan(da, dbx)
+    del da, dbx
+    y = torch.einsum("bsen,bsn->bse", hs, c.float())
+    return y, hs[:, -1].clone()
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -57,7 +100,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     element (b_0 <- a_0 h + b_0), so the scan starts from 0; the reference
     scans the chunk and adds (prod a) h afterwards, so the two agree to
     float32 rounding, not bit for bit.  Where autograd records, or on a
-    mesh, the fold is out of place (the same product and sum)."""
+    mesh, the fold is out of place (the same product and sum), and where
+    autograd records each chunk runs under a non-reentrant checkpoint (the
+    reference's ``jax.checkpoint(chunk_step)``): the backward recomputes
+    a chunk's [B, cs, E, N] float32 transients from its inputs and state
+    instead of keeping every chunk's (the same bits)."""
     bsz, s, e = x.shape
     n = a.shape[1]
     nchunks = max(1, s // chunk)
@@ -71,20 +118,13 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ys = []
     for i in range(nchunks):
         part = slice(i * cs, (i + 1) * cs)
-        dtf = dt[:, part].float()
-        da = torch.exp(dtf[..., None] * af)  # [B, cs, E, N]
-        dbx = (dtf * x[:, part].float())[..., None] \
-            * b[:, part, None, :].float()
-        if records_grad(dbx, da, h) or is_dtensor(dbx):
-            dbx = torch.cat([torch.addcmul(dbx[:, :1], da[:, :1], h[:, None]),
-                             dbx[:, 1:]], dim=1)
+        args = (h, x[:, part], dt[:, part], af, b[:, part], c[:, part])
+        if records_grad(*args):
+            y, h = checkpoint(_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            dbx[:, 0].addcmul_(da[:, 0], h)
-        hs = lru_scan(da, dbx)
-        del da, dbx
-        ys.append(torch.einsum("bsen,bsn->bse", hs, c[:, part].float()))
-        h = hs[:, -1].clone()
-        del hs
+            y, h = _chunk(*args)
+        ys.append(y)
     y = torch.cat(ys, dim=1) + x.float() * d.float()
     return y.to(x.dtype), h
 
@@ -200,7 +240,7 @@ class MambaLM(LanguageModel):
         xc = F.silu(xc + p["conv_b"].to(dt_))
         proj = xc @ p["x_proj"].to(dt_)  # [B, S, r + 2n]
         dt_raw, bmat, cmat = torch.split(proj, [r, n, n], dim=-1)
-        dt = F.softplus(dt_raw @ p["dt_proj"].to(dt_) + p["dt_bias"].to(dt_))
+        dt = softplus(dt_raw @ p["dt_proj"].to(dt_) + p["dt_bias"].to(dt_))
         a = -torch.exp(p["a_log"].float())
         if cache is None:
             with named_scope("mamba.scan"):
@@ -218,12 +258,11 @@ class MambaLM(LanguageModel):
         return (y.to(dt_) * F.silu(z)) @ p["out_proj"].to(dt_)
 
     def _layers(self, p, cache=None):
-        """(parameters, cache) of every layer, as views."""
-        for i in range(self.cfg.num_layers):
-            yield (
-                {key: t[i] for key, t in p["layers"].items()},
-                None if cache is None else {key: t[i]
-                                            for key, t in cache.items()})
+        """(parameters, cache) of every layer: the parameters taken apart
+        once (`unstack`), the cache as views (decode writes into them)."""
+        for i, lp in enumerate(unstack(p["layers"])):
+            yield lp, None if cache is None else {key: t[i] for key, t
+                                                  in cache.items()}
 
     def _logits(self, p, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)

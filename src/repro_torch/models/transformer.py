@@ -15,8 +15,13 @@ carrying the reference's weights over is a name-for-name copy
 groups of ``len(layer_pattern)`` layers is a Python loop over the stacked
 layers here; stacked layer ``i`` is of kind
 ``layer_pattern[i % len(layer_pattern)]``, and ``layer0`` is global.
-``remat`` recomputes each block in the backward (`LanguageModel.
-_layer_call`).  On a ``mesh`` the parameters are DTensors placed per
+The stacked leaves are taken apart once a call (`common.unstack`), so
+the backward writes each stacked gradient once.  ``remat="full"``
+recomputes each block in the backward (`LanguageModel._layer_call`);
+``remat="2level"`` is the reference's sqrt-checkpointing over the scanned
+groups (`LanguageModel._two_level`: 6 outer groups of 4 for qwen2-0.5b's
+24, 12 of 8 for nemotron-4-340b's 96), with ``layer0`` recomputed alone
+as under "full".  On a ``mesh`` the parameters are DTensors placed per
 `param_pspecs`, the blocks carry the reference's anchors (`sp_boundary`
 around attention and the FFN, `sp_constrain` after each pattern group,
 the one-hot embedding and `logits_constrain`) and the MoE blocks run
@@ -35,7 +40,7 @@ from . import attention as attn
 from . import mlp as ffn
 from ..parallel.sharding import DEFAULT_RULES, AxisRules, spec_for
 from .common import (LanguageModel, ParamDef, mesh_forward, mesh_inference,
-                     rms_norm, sp_constrain, stack_defs, tree_map)
+                     rms_norm, sp_constrain, stack_defs, tree_map, unstack)
 from .config import ModelConfig
 from .rope import default_positions, mrope_positions
 
@@ -130,12 +135,12 @@ class TransformerLM(LanguageModel):
         return cache_specs(self.cfg, mesh, batch, max_seq, rules)
 
     def _layers(self, p):
-        """(kind, parameters of stacked layer i) for every stacked layer, as
-        views (``layer0`` is not among them)."""
+        """[(kind, parameters of stacked layer i)] for every stacked layer,
+        the parameters taken apart once (`unstack`; ``layer0`` is not among
+        them)."""
         pattern = self.cfg.layer_pattern
-        for i in range(_scanned_layers(self.cfg)):
-            yield pattern[i % len(pattern)], tree_map(lambda a: a[i],
-                                                      p["layers"])
+        return [(pattern[i % len(pattern)], lp)
+                for i, lp in enumerate(unstack(p["layers"]))]
 
     # -- forward ---------------------------------------------------------
     def _block(self, p, x, kind: str, positions, cache=None, pos=None):
@@ -178,13 +183,22 @@ class TransformerLM(LanguageModel):
         positions = self._positions(tokens, positions)
         x = self._embed(p, tokens)
         if "layer0" in p:
-            x = self._layer_call(self._block, p["layer0"], x, "global",
-                                 positions)
+            x = self._remat_call(self.remat != "none", self._block,
+                                 p["layer0"], x, "global", positions)
         gsize = len(self.cfg.layer_pattern)
-        for i, (kind, pi) in enumerate(self._layers(p)):
-            x = self._layer_call(self._block, pi, x, kind, positions)
-            if (i + 1) % gsize == 0:  # the end of a scanned group
-                x = sp_constrain(x, self.mesh, self.sp, self.rules)
+        layers = self._layers(p)
+        groups = [layers[i:i + gsize] for i in range(0, len(layers), gsize)]
+
+        def group(gp, x):  # one scanned group, anchored at its end
+            for kind, pi in gp:
+                x = self._layer_call(self._block, pi, x, kind, positions)
+            return sp_constrain(x, self.mesh, self.sp, self.rules)
+
+        if self.remat == "2level":
+            x = self._two_level(group, groups, x)
+        else:
+            for gp in groups:
+                x = group(gp, x)
         x = rms_norm(x, p["final_norm"], self.cfg.norm_eps)
         return self._unembed(p, x)
 

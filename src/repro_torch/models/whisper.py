@@ -17,7 +17,10 @@ The parameters keep the reference's tree (``embedding``, ``enc_norm``,
 computes in the dtype of what it is given, as JAX's promotion does: the
 encoder in the frames' dtype, the decoder in the embedding's, and the
 cross keys and values in the wider of the memory's and the decoder's.
-``remat`` recomputes each encoder and decoder layer in the backward.  On
+The stacked leaves are taken apart once a call (`common.unstack`).
+``remat="full"`` recomputes each encoder and decoder layer in the
+backward; "2level" recomputes none, as the reference, whose encoder and
+decoder check for "full" alone.  On
 a ``mesh`` the parameters are DTensors placed per `param_pspecs`, the
 frames (the global batch's) and the sinusoid tables join the activations
 as DTensors, and the blocks carry the reference's anchors
@@ -41,7 +44,7 @@ from . import attention as attn
 from . import mlp as ffn
 from .common import (LanguageModel, ParamDef, embed_lookup, mesh_forward,
                      mesh_inference, rms_norm, sp_constrain, stack_defs,
-                     tree_map)
+                     tree_map, unstack)
 from .config import ModelConfig
 from .rope import default_positions
 
@@ -160,9 +163,8 @@ class WhisperModel(LanguageModel):
             x = frames + replicate_like(_sinusoid(f, cfg.d_model, frames.dtype,
                                                   frames.device)[None], frames)
             positions = default_positions(b, f, device=frames.device)
-            for i in range(cfg.encoder_layers):
-                x = self._layer_call(self._enc_block, _layer(p["encoder"], i),
-                                     x, positions)
+            for lp in unstack(p["encoder"]):
+                x = self._layer_call(self._enc_block, lp, x, positions)
             return rms_norm(x, p["enc_norm"], cfg.norm_eps)
 
     def _enc_block(self, lp, x: torch.Tensor, positions) -> torch.Tensor:
@@ -254,9 +256,8 @@ class WhisperModel(LanguageModel):
         x = embed_lookup(p["embedding"], tokens, self.mesh, self.rules)
         x = x + replicate_like(_sinusoid(s, self.cfg.d_model, x.dtype,
                                          x.device)[None], x)
-        for i in range(self.cfg.num_layers):
-            x = self._layer_call(self._dec_block, _layer(p["decoder"], i), x,
-                                 memory, positions)
+        for lp in unstack(p["decoder"]):
+            x = self._layer_call(self._dec_block, lp, x, memory, positions)
             x = sp_constrain(x, self.mesh, self.sp, self.rules)
         return self._logits(p, x)
 
@@ -291,7 +292,7 @@ class WhisperModel(LanguageModel):
         x = x + replicate_like(_sinusoid(1, self.cfg.d_model, x.dtype,
                                          x.device, start=pos)[None], x)
         memory = cache["memory"]
-        for i in range(self.cfg.num_layers):
-            x = self._dec_block(_layer(p["decoder"], i), x, memory, None,
+        for i, lp in enumerate(unstack(p["decoder"])):
+            x = self._dec_block(lp, x, memory, None,
                                 cache=_layer(cache["self"], i), pos=pos)
         return self._logits(p, x), cache

@@ -14,8 +14,9 @@ On a mesh the parameters, gradients and moments are DTensors: AdamW's
 moments are made like their parameters (``zeros_like``) and shard as
 they do (``state_pspecs``); Adafactor's factored moments have specs of
 their own (``state_pspecs``) and are placed by
-``train.elastic.reshard_state``.  `global_norm` sums each DTensor leaf's
-squares over its shards first.
+``train.elastic.reshard_state``; its update keeps every tensor the size
+of a parameter laid out as the parameter (`_factored_update`).
+`global_norm` sums each DTensor leaf's squares over its shards first.
 """
 
 from __future__ import annotations
@@ -66,6 +67,37 @@ def _learning_rate(lr, count: torch.Tensor) -> torch.Tensor:
     if callable(lr):
         return lr(count - 1)
     return torch.tensor(lr, dtype=torch.float32, device=count.device)
+
+
+def _factored_update(g: torch.Tensor, r: torch.Tensor, vc: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """Adafactor's ``g * rsqrt(max(r[..., None] * vc[..., None, :], eps))``
+    for g [..., m, n], r [..., m], vc [..., n].  On a mesh under
+    ``local_map``: g as it is laid out, r and vc laid out as the factored
+    moments (g's layout without its last or its second last dim), so each
+    rank's rows of r and columns of vc are those of its block of g and
+    the [..., m, n] products stay in g's layout; left to DTensor, the
+    broadcast product was formed whole on every rank."""
+    def local(g, r, vc):
+        return g * torch.rsqrt(torch.clamp(r[..., None] * vc[..., None, :],
+                                           min=eps))
+
+    if not is_dtensor(g):
+        return local(g, r, vc)
+    from ..parallel.compat import local_map
+
+    return local_map(local, out_placements=list(g.placements),
+                     in_placements=(g.placements, r.placements,
+                                    vc.placements),
+                     device_mesh=g.device_mesh,
+                     redistribute_inputs=True)(g, r, vc)
+
+
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """`t` laid out as `ref` (a DTensor), or `t` itself."""
+    if not is_dtensor(ref):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
 
 
 def _unzip(out: Any, n: int):
@@ -173,12 +205,13 @@ class Adafactor:
         def upd(p, g, vr, vc):
             g2 = g * g + eps
             if self._factored(p.shape):
-                new_vr = beta2 * vr + (1 - beta2) * g2.mean(dim=-1)
-                new_vc = beta2 * vc + (1 - beta2) * g2.mean(dim=-2)
+                # the row and column means reduced over their shards, each
+                # moment kept in its own layout
+                new_vr = _like(beta2 * vr + (1 - beta2) * g2.mean(dim=-1), vr)
+                new_vc = _like(beta2 * vc + (1 - beta2) * g2.mean(dim=-2), vc)
                 denom = new_vr.mean(dim=-1, keepdim=True)
-                r = (new_vr / torch.clamp(denom, min=eps))[..., None]
-                u = g * torch.rsqrt(torch.clamp(r * new_vc[..., None, :],
-                                                min=eps))
+                r = _like(new_vr / torch.clamp(denom, min=eps), vr)
+                u = _factored_update(g, r, new_vc, eps)
             else:
                 new_vc = beta2 * vc + (1 - beta2) * g2
                 new_vr = vr

@@ -374,3 +374,36 @@ def rank_mesh_grads(rank, world, tmp, shape, archs):
                       {"loss": torch.stack([loss0, loss1]),
                        "meshless": g0, "mesh": tree_map(torch.Tensor.detach,
                                                         g1)})
+
+
+def rank_adafactor(rank, world, tmp, shape):
+    """Adafactor's update (lr 1e-2) of scaled-down qwen2-0.5b parameters
+    (float32, 2 layers) on a `shape` ("data", "model") mesh under the
+    tp2d rules, from the parameters, gradients and state in
+    tmp/inputs.npz, each placed as the meshless train step's would be:
+    the new parameters and state, gathered, to tmp/mesh.npz."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import model_parts
+    from repro_torch.models.common import tree_map
+    from repro_torch.parallel.sharding import constrain
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import Adafactor
+
+    cfg = _scaled_down("qwen2-0.5b")
+    inputs = tree_map(torch.from_numpy,
+                      load_tree(os.path.join(tmp, "inputs.npz")))
+    mesh = make_mesh(shape, ("data", "model"))
+    model = model_parts(cfg)[1](cfg, inputs["params"], mesh=mesh)
+    pspecs = model.param_pspecs(mesh)
+    opt = Adafactor(learning_rate=1e-2)
+    state = reshard_state(
+        {"params": inputs["params"], "opt": inputs["opt"]},
+        {"params": pspecs, "opt": opt.state_pspecs(pspecs,
+                                                   inputs["params"])}, mesh)
+    grads = tree_map(lambda g, s: constrain(g, mesh, s), inputs["grads"],
+                     pspecs)
+    new_p, new_s, _ = opt.update(grads, state["opt"], state["params"])
+    out = {"params": _full(new_p), "vr": _full(new_s["vr"]),
+           "vc": _full(new_s["vc"])}  # every rank takes part in the gathers
+    if rank == 0:
+        save_tree(os.path.join(tmp, "mesh.npz"), out)
