@@ -6,13 +6,15 @@
 Builds every CUDA kernel of the port from the sources in this checkout
 (nvcc, at first use), holds each kernel against its plain PyTorch version
 on the card, checks the port on the card against the port on the CPU, and
-drives four paths through the public entry points: the paper's §VIII
+drives these paths through the public entry points: the paper's §VIII
 saturation path at PolarFly PF(31) (993 routers, p = 16 endpoints each,
 about 16k endpoints), the flit-level packet engine (tail latency, bursts,
 a link-failure transient) at PF(31), the structural-analysis path (the
 §IV-D routing table, the §IX diameters under link failure, the blocked
 routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
-(6321 routers), and the prefill and serve paths of the dense transformer
+(6321 routers), the reference's scale tier through the blocked routing
+stack (PF(79) and PF(157) saturations, the PF(79) packet point), and the
+prefill and serve paths of the dense transformer
 (Gemma2-9B), the MoE family (deepseek-moe-16b, qwen2-moe-a2.7b), the
 Griffin hybrid (recurrentgemma-9b), the SSM (falcon-mamba-7b) and the
 encoder-decoder (whisper-base), each at its full published width, and
@@ -124,6 +126,44 @@ development run that then fails for the kernels it did not launch):
              and launches for each (10 minplus_hops launches per PF(31)
              APSP, 13 per PF(79) one, none of the float minplus kernel, 1
              gf_crossprod launch per table)
+  scale      the reference's scale tier through the blocked routing
+             stack (never an [n, n] table), every BFS sweep on the card,
+             spread over every visible card (`devices=
+             torch.cuda.device_count()`; each card's context made before
+             the first timed stage), the points' settings read from the
+             fixture's `config`: fig10's PF(79) point (6321
+             routers, `build_blocked_routing` with its n-source BFS,
+             diameter 2; uniform p = 40, 60,000 sampled flows, ugal_pf,
+             k_candidates 8, seed 0; `saturation_throughput(tol=0.02,
+             engine="batched")` at 3000 iterations within one bisection
+             step (1/64) of the JAX package's, fig10's 1500-iteration
+             reading beside it);
+             bench_fig_tail.py's PF(79) packet point on that routing
+             (p = 8, ugal_pf, `make_workload(0.3, 400 cycles,
+             flow_sample=8000, max_packets=1,500,000)`: workload and
+             result hashes, counts and p50/p99/p999 equal, a second run
+             equal, packet_peak_bytes beside the card's memory); and
+             bench_blockwise_scaling.py's LARGE tier at PF(157) (24,807
+             routers): 24 blocks of 8 destinations from default_rng(0)
+             through `destination_blocks` on the card, bit for bit the
+             JAX host engine's columns (the fixture's hashes), then
+             `build_blocked_routing(block=8, diameter=2)`, uniform p = 79,
+             60,000 flows, min, `tol=0.005`, 250 iterations, equal to
+             the JAX package's.  Every FlowPaths (pattern, edges, hops,
+             valid, is_min, first_edge) equal to
+             tests/fixtures/torch_port_scale_reference.json's sha256.
+             Per point the wall seconds of graph, routing (the device
+             BFS), pattern, path build, saturation or packet run, the
+             path-cost launches of each saturation (iters + the probes'
+             schedule for ugal_pf, 0 for min) and the cards used; then
+             path_costs at the two points' shapes (PF(79) ugal_pf [F, 9,
+             4], PF(157) min [F, 1, 4]) against its plain version (bit for
+             bit) and `embedding_bag`, timed beside its bytes bound (the
+             table entries the flows touch, read once), each with the
+             launches its point made (`on_path` false at PF(157): min
+             bypasses the kernel, so that shape is timed off the path).
+             The scale path's launches go on the kernel line as
+             `launches_scale`
   model      Gemma2-9B at its published widths (d_model 3584, 16/8 heads
              of 256, d_ff 14336, vocab 256000, window 4096, softcaps
              50/30), bf16, random parameters from seed 0, all 42 layers
@@ -325,6 +365,12 @@ CERT_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                             "torch_port_pf31_certified.json")
 PACKET_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                               "torch_port_pf31_packet.json")
+# the scale tier's settings (its `config`) and the JAX package's results:
+# fig10's PF(79) adaptive point (held at 3000 iterations, fig10's 1500
+# printed beside it), bench_blockwise_scaling.py's LARGE tier at PF(157)
+# and bench_fig_tail.py's PF(79) packet point
+SCALE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                             "torch_port_scale_reference.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # Issue rates in lane-instructions a second, 132 SMs x lanes x 1.98 GHz.
@@ -630,12 +676,19 @@ def main_path_inputs(torch):
     from repro_torch.core.polarfly import build_polarfly
     from repro_torch.core.routing import build_routing
     from repro_torch.simulation import build_flow_paths, make_pattern
-    from repro_torch.simulation import fluid
 
     pf = build_polarfly(31)
     rt = build_routing(pf.graph, pf)
     pat = make_pattern("uniform", rt, p=16, seed=0)
-    fp = build_flow_paths(rt, pat, "ugal_pf", k_candidates=10, seed=0)
+    return path_cost_inputs(torch, build_flow_paths(
+        rt, pat, "ugal_pf", k_candidates=10, seed=0))
+
+
+def path_cost_inputs(torch, fp):
+    """(edge ids, delay table) that the FW loop gives path_costs on `fp`:
+    the delays of the load at half the offered range."""
+    from repro_torch.simulation import fluid
+
     fw, demand, _, _ = fluid._pieces(fp, torch.device("cuda"))
     rho = fw.loads(fw.init, demand * 0.5)
     delay = torch.cat([1.0 + fluid._queue_delay(rho),
@@ -1929,6 +1982,276 @@ def phase_analysis(torch, state):
     out["minplus_hops_launches"] = mp_ops.MINPLUS_HOPS_LAUNCHES
     if problems:
         raise AssertionError(f"analysis path failed its checks: {problems}")
+    return out
+
+
+def sweep_dests(n, block, blocks):
+    """bench_blockwise_scaling.py's sweep: `blocks` blocks of `block`
+    destinations drawn with default_rng(0), sorted."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return np.sort(rng.choice(n, size=block * blocks, replace=False))
+
+
+def flow_hashes(fp):
+    """sha256 of a FlowPaths' pattern and path arrays (the hashes
+    scripts/make_torch_port_reference.py --scale records)."""
+    return {**{k: sha(getattr(fp.pattern, k)) for k in ("src", "dst",
+                                                        "demand")},
+            **{k: sha(getattr(fp, k)) for k in ("edges", "hops", "valid",
+                                                "is_min", "first_edge")}}
+
+
+def kernel_path_costs_at(torch, label, fp, path_launches):
+    """path_costs on a scale point's own flows (`path_cost_inputs`)
+    against its plain version (bit for bit) and `embedding_bag`, timed
+    beside the bytes bound.  The bound reads the table entries these
+    flows touch, once (the work depends on the data).  `path_launches`
+    is what the point's run launched: a shape the path never gives the
+    kernel (min bypasses the FW loop) is marked off the path."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.kernels.minplus.ref import path_costs_ref
+
+    eidx, delay = path_cost_inputs(torch, fp)
+    f, k, l = eidx.shape
+    n_out = f * k
+    out = ops.path_costs(delay, eidx)
+    same = bool(torch.equal(out, path_costs_ref(delay, eidx)))
+    if not same:
+        raise AssertionError(f"path_costs differs from its plain version "
+                             f"at {label}")
+    touched = int(torch.unique(eidx).numel())
+    bytes_moved = n_out * l * 4 + n_out * 4 + touched * 4
+    bound = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ms = gpu_ms(torch, lambda: ops.path_costs(delay, eidx))
+    flat, table = eidx.view(-1, l), delay.view(-1, 1)
+    return {"shape": label, "eidx": [f, k, l], "table": delay.numel(),
+            "path_launches": path_launches, "on_path": path_launches > 0,
+            "table_entries_touched": touched, "bit_identical": same,
+            "max_abs_err": 0.0, "kernel_ms": ms,
+            "plain_ms": gpu_ms(torch, lambda: path_costs_ref(delay, eidx)),
+            "library_ms": gpu_ms(torch, lambda: F.embedding_bag(
+                flat, table, mode="sum")),
+            "bound_ms": bound, "bound_by": "bytes", "bytes": bytes_moved,
+            "bound_share": bound / ms,
+            "plan": ops._path_costs_plan(n_out, l, eidx.data_ptr())}
+
+
+def bisection_step(tol):
+    """The width of `saturation_throughput`'s last bisection bracket:
+    2^-ceil(log2(1 / tol)), the resolution every saturation it returns
+    is a multiple of."""
+    import numpy as np
+
+    return 2.0 ** -max(1, int(np.ceil(np.log2(1.0 / tol))))
+
+
+def phase_scale(torch, state):
+    """The reference's scale tier on the card through the blocked routing
+    stack, which never holds an [n, n] table: PF(79) ugal_pf and PF(157)
+    min saturations, the PF(157) destination sweep, the PF(79) packet
+    point, each held against tests/fixtures/torch_port_scale_reference.json
+    (the JAX package's run), whose `config` gives the points' settings.
+    Every card the sweeps use is set up before the first timed stage.
+    The path-cost count starts at 0 here and is read before the kernel is
+    held and timed at the points' shapes."""
+    import numpy as np
+
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.core.routing import (build_blocked_routing,
+                                          destination_blocks)
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.parallel.blockwise import resolve_devices
+    from repro_torch.simulation import (build_flow_paths, make_pattern,
+                                        make_workload, packet_peak_bytes,
+                                        saturation_throughput,
+                                        simulate_packets)
+    from repro_torch.simulation.fluid import _probe_schedule
+
+    with open(SCALE_FIXTURE) as fh:
+        fixture = json.load(fh)
+    config, ref = fixture["config"], fixture["points"]
+    ndev = torch.cuda.device_count()
+    cards = resolve_devices(ndev)
+    for d in cards:  # each card's context, outside the timed stages
+        torch.empty(1, device=d)
+        torch.cuda.synchronize(d)
+    problems, out = [], {"cards": len(cards)}
+    paths_fp, path_launches = {}, {}
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def paths(rt, key):
+        c = config[key]
+        pat, pattern_s = timed(lambda: make_pattern(
+            "uniform", rt, p=c["p"], seed=c["seed"],
+            max_flows=c["max_flows"]))
+        fp, paths_s = timed(lambda: build_flow_paths(
+            rt, pat, c["mode"], k_candidates=c["k_candidates"],
+            seed=c["seed"]))
+        f, k, l = fp.edges.shape
+        want = ref[key]
+        return fp, {"flows": f, "candidates": k, "path_len": l,
+                    "num_links": fp.num_links, "pattern_s": pattern_s,
+                    "paths_s": paths_s,
+                    "hashes_equal": check(
+                        flow_hashes(fp) == want["sha256"]
+                        and [f, k, l] == [want["flows"], want["candidates"],
+                                          want["path_len"]],
+                        f"{key} FlowPaths hashes")}
+
+    def saturation(fp, tol, iters):
+        fp.device_arrays("cuda")
+        before = ops.LAUNCHES
+        sat, wall = timed(lambda: saturation_throughput(
+            fp, tol=tol, iters=iters, engine="batched", device="cuda"))
+        probes = max(1, int(np.ceil(np.log2(1.0 / tol))))
+        want = (iters + sum(_probe_schedule(iters, probes))
+                if fp.mode in ("ugal", "ugal_pf") else 0)
+        launches = ops.LAUNCHES - before
+        check(launches == want, f"{fp.mode} path-cost launches {launches} "
+                                f"!= {want}")
+        return sat, {"wall_s": wall, "launches": launches,
+                     "launches_expected": want}
+
+    ops.LAUNCHES = 0  # the scale path's count starts here
+    # (a) PF(79) adaptive: fig10's scale tier, the n-source BFS on the card
+    key = "pf79_ugal_pf"
+    c = config[key]
+    g79, graph_s = timed(lambda: build_polarfly(c["q"]).graph)
+    rt79, routing_s = timed(lambda: build_blocked_routing(
+        g79, backend="sharded", devices=ndev))
+    row = {"routers": g79.n, "graph_s": graph_s,
+           "routing_s": routing_s,  # the n-source BFS sweep on the card
+           "diameter": rt79.diameter, "dest_block": rt79.block,
+           "diameter_ok": check(rt79.diameter == 2, "pf79 diameter")}
+    fp, prow = paths(rt79, key)
+    row.update(prow)
+    sat, srow = saturation(fp, c["tol"], c["iters"])
+    sat10, srow10 = saturation(fp, c["tol"], c["fig10_iters"])
+    # within one bisection step: the adaptive iterate may end a step away
+    # on another device, and 0 (or any neighbour two steps off) fails
+    bar = bisection_step(c["tol"])
+    row.update({"saturation": sat, "reference": ref[key]["saturation"],
+                "bar": bar,
+                "saturation_ok": check(
+                    np.isfinite(sat)
+                    and abs(sat - ref[key]["saturation"]) <= bar,
+                    f"{key} saturation {sat}"),
+                **srow, f"saturation_{c['fig10_iters']}": sat10,
+                f"reference_{c['fig10_iters']}":
+                    ref[key]["saturation_fig10"],
+                f"wall_{c['fig10_iters']}_s": srow10["wall_s"],
+                f"launches_{c['fig10_iters']}": srow10["launches"]})
+    paths_fp[key] = fp
+    path_launches[key] = srow["launches"] + srow10["launches"]
+    out[key] = row
+    emit({"phase": "scale.run", "point": key, **row})
+
+    # (c) the PF(79) packet point, on (a)'s routing
+    key = "pf79_packet"
+    c = config[key]
+    fp8, row = paths(rt79, key)
+    want = ref[key]
+    wl, workload_s = timed(lambda: make_workload(
+        fp8, c["offered"], c["cycles"], seed=c["seed"],
+        flow_sample=c["flow_sample"], max_packets=c["max_packets"]))
+    row["workload_s"] = workload_s
+    row["workload_hashes_equal"] = check(
+        {k: sha(getattr(wl, k)) for k in want["workload_sha256"]}
+        == want["workload_sha256"], "pf79 packet workload hashes")
+    del fp8
+    torch.cuda.reset_peak_memory_stats()
+    res, first_s = timed(lambda: simulate_packets(wl, device="cuda"))
+    again, wall = timed(lambda: simulate_packets(wl, device="cuda"))
+    got = {"delivered": sha(res.delivered), "dropped": sha(res.dropped),
+           "deliver_t_delivered": sha(res.deliver_t[res.delivered]),
+           "occ_sum": sha(res.occ_sum), "occ_max": sha(res.occ_max)}
+    row.update({
+        "packets": wl.num_packets, "workload_flows": wl.num_flows,
+        "links": wl.num_links, "delivered": res.num_delivered,
+        "dropped": res.num_dropped, "tails": res.tails(),
+        "result_hashes_equal": check(got == want["result_sha256"],
+                                     "pf79 packet result hashes"),
+        "counts_and_tails_equal": check(
+            (wl.num_packets, res.num_delivered, res.num_dropped,
+             res.tails()) == (want["packets"], want["delivered"],
+                              want["dropped"], want["tails"]),
+            "pf79 packet counts or tails"),
+        "rerun_equal": check(all(np.array_equal(getattr(res, f),
+                                                getattr(again, f))
+                                 for f in ("delivered", "dropped",
+                                           "deliver_t", "occ_sum",
+                                           "occ_max")),
+                             "pf79 packet second run differs"),
+        "first_run_s": first_s, "wall_s": wall,
+        "ms_per_cycle": 1e3 * wall / wl.cycles,
+        "packet_peak_bytes": packet_peak_bytes(wl),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "card_memory": torch.cuda.get_device_properties(0).total_memory})
+    del wl, res, again, rt79, g79
+    out[key] = row
+    emit({"phase": "scale.run", "point": key, **row})
+
+    # (b) PF(157) oblivious: the blockwise-scaling LARGE tier
+    key = "pf157_min"
+    c, want = config[key], ref[key]
+    g, graph_s = timed(lambda: build_polarfly(c["q"]).graph)
+    dests = sweep_dests(g.n, c["block"], c["sweep_blocks"])
+    cols, sweep_s = timed(lambda: list(destination_blocks(
+        g, dests=dests, block=c["block"], backend="sharded",
+        devices=ndev)))
+    # the fixture's hashes are the JAX package's host backend's columns
+    dist = np.concatenate([d for _, d, _ in cols], axis=1)
+    nh = np.concatenate([h for _, _, h in cols], axis=1)
+    row = {"routers": g.n, "graph_s": graph_s, "sweep_blocks": len(cols),
+           "sweep_s": sweep_s,
+           "sweep_hashes_equal": check(
+               {"dests": sha(dests), "dist_cols": sha(dist),
+                "nh_cols": sha(nh)} == want["sweep_sha256"],
+               "pf157 sweep hashes")}
+    del cols, dist, nh
+    rt, routing_s = timed(lambda: build_blocked_routing(
+        g, block=c["block"], diameter=c["diameter"], backend="sharded",
+        devices=ndev))
+    row["routing_s"] = routing_s
+    fp, prow = paths(rt, key)
+    row.update(prow)
+    sat, srow = saturation(fp, c["tol"], c["iters"])
+    # oblivious: no iterate to drift, so held to the bit as the main
+    # path holds min
+    row.update({"saturation": sat, "reference": want["saturation"],
+                "saturation_ok": check(sat == want["saturation"],
+                                       f"{key} saturation {sat}"), **srow})
+    paths_fp[key] = fp
+    path_launches[key] = srow["launches"]
+    out[key] = row
+    emit({"phase": "scale.run", "point": key, **row})
+    state["scale_launches"] = ops.LAUNCHES  # the scale path's, read here
+
+    # path_costs at the points' shapes (launches made here are not the
+    # path's)
+    shapes = [kernel_path_costs_at(torch, k, v, path_launches[k])
+              for k, v in paths_fp.items()]
+    state["path_costs_scale_shapes"] = shapes
+    out["path_costs"] = shapes
+    emit({"phase": "scale.path_costs", "shapes": shapes})
+    out["path_costs_launches"] = state["scale_launches"]
+    if problems:
+        raise AssertionError(f"scale tier failed its checks: {problems}")
     return out
 
 
@@ -3494,6 +3817,7 @@ def main():
               ("certified", phase_certified, (torch, state)),
               ("packet", phase_packet, (torch, state)),
               ("analysis", phase_analysis, (torch, state)),
+              ("scale", phase_scale, (torch, state)),
               ("model", phase_model, (torch, state)),
               ("moe", phase_moe, (torch, state)),
               ("hybrid", phase_hybrid, (torch, state)),
@@ -3547,10 +3871,12 @@ def main():
                 "flash_bwd_sm90_launches_by_path")
         if k["name"] == "path_costs":
             # the main path's count is `launches`; the certified path's
-            # beside it
+            # and the scale tier's beside it
             k["launches_certified"] = state.get("certified_launches", 0)
             k["launches_certified_by_dtype"] = state.get(
                 "certified_launches_by_dtype")
+            k["launches_scale"] = state.get("scale_launches", 0)
+            k["scale_shapes"] = state.get("path_costs_scale_shapes")
     smoke.record["kernels"] = kernels
     smi = nvidia_smi()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -20,6 +20,7 @@ import numpy as np
 from .gf import is_prime_power, primes_and_prime_powers
 from .graph import Graph, UNREACHABLE
 from .polarfly import moore_bound
+from ..parallel.blockwise import Devices
 from .routing import _resolve_engine, all_pairs_distances, distance_blocks
 
 __all__ = [
@@ -36,7 +37,7 @@ __all__ = [
 
 def diameter_and_aspl(g: Graph, dist: Optional[np.ndarray] = None,
                       engine: str = "auto", backend: str = "auto",
-                      devices: Optional[int] = None,
+                      devices: Devices = None,
                       device: str = "cuda") -> Tuple[int, float]:
     """(diameter, average shortest path length) over connected pairs.
 
@@ -47,8 +48,9 @@ def diameter_and_aspl(g: Graph, dist: Optional[np.ndarray] = None,
     an [n, n] matrix; sums stay in exact integer arithmetic, so both engines
     return identical values.  `backend`/`devices` pass through to
     `distance_blocks` on the streaming path (the blockwise executor's host
-    loop vs the device BFS on `device`, one source block at a time --
-    bit-identical, so the exact integer sums are preserved either way).
+    loop vs the device BFS, a round of source blocks at a time, one a
+    device -- bit-identical, so the exact integer sums are preserved
+    either way).
     """
     if dist is None and _resolve_engine(engine, g.n) == "sparse":
         diam, total, pairs = 0, 0, 0

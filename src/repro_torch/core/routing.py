@@ -50,10 +50,13 @@ resilience sweeps) never need to materialize an [n, n] table at all.
 
 The block loops themselves run on the shared blockwise executor
 (`repro_torch.parallel.blockwise.run_blocks`): ``backend="host"`` is the
-sequential reference loop, ``backend="sharded"`` runs each source or
-destination block on a device (the card unless the caller passes
-``device="cpu"``) through the PyTorch twins of `_bfs_block` and
-`_next_hop_rows` (`_bfs_device_fn`, `_dest_device_fn`), and
+sequential reference loop, ``backend="sharded"`` runs the source or
+destination blocks a round at a time, one block a device (`devices` of
+the visible cards, an explicit list, or ``device`` alone where that is
+one or `devices` is None -- ``device="cpu"`` for the CPU), through the
+PyTorch twins of `_bfs_block` and `_next_hop_rows` (`_bfs_device_fn`,
+`_dest_device_fn`; one twin a device, each with its own copy of the
+neighbour tables), and
 ``backend="auto"`` stays on the host loop unless a multi-device run is
 requested via ``devices``.  Backends are bit-identical
 (tests/test_torch_blockwise.py asserts it against the JAX package's host
@@ -88,9 +91,10 @@ from .graph import Graph, UNREACHABLE
 from .polarfly import PolarFly
 from .stepping import walk_next_hops
 from ..device import resolve_device
-from ..parallel.blockwise import (DEFAULT_BUDGET_BYTES, available_devices,
-                                  block_size_for_budget, peak_bytes,
-                                  plan_blocks, run_blocks)
+from ..parallel.blockwise import (DEFAULT_BUDGET_BYTES, Devices,
+                                  available_devices, block_size_for_budget,
+                                  peak_bytes, plan_blocks, resolve_devices,
+                                  run_blocks)
 
 __all__ = [
     "UNREACHABLE",
@@ -283,26 +287,31 @@ def _bfs_device_fn(g: Graph, want_next_hop: bool, device: DeviceLike):
     return fn
 
 
-def _resolve_devices(backend: str, devices: Optional[int]) -> int:
-    """`devices=None` means every visible device (at least one) under
-    backend="sharded" and a single device (-> host loop) otherwise."""
-    if devices is not None:
-        return int(devices)
-    return max(1, available_devices()) if backend == "sharded" else 1
-
-
-def _device_run(backend: str, ndev: int) -> bool:
-    """Whether a device twin is needed: asked for by name, or "auto" with
-    a multi-device run requested and that many cards present (the twin is
-    built on its device, so it is not built where "auto" stays on the
-    host)."""
-    return backend == "sharded" or (ndev > 1 and available_devices() > 1)
+def _device_run(backend: str, devices: Devices,
+                device: DeviceLike, factory):
+    """(block-plan width, twins or None): one twin a device of
+    `resolve_devices(devices, device)` where a device run is wanted --
+    asked for by name (`devices=None` then means `device` alone), or
+    "auto" with more than one device to spread over (the reference's
+    rule: `devices=None`, or a count on a machine with fewer than two
+    cards, is the host loop, and the card is not asked for).  Each twin
+    is built on its device by `factory(device)`, with its own copy of the
+    neighbour tables; None where no twin exists (an edge-free graph)."""
+    if backend not in ("auto", "sharded") or (backend == "auto" and (
+            devices is None or (isinstance(devices, (int, np.integer))
+                                and available_devices() < 2))):
+        return 1, None
+    devs = resolve_devices(devices, device)
+    if backend == "auto" and len(devs) < 2:
+        return 1, None
+    twins = [factory(d) for d in devs]
+    return len(devs), None if any(t is None for t in twins) else twins
 
 
 def distance_blocks(g: Graph, block: Optional[int] = None,
                     next_hop: bool = False,
                     budget_bytes: int = _BFS_BUDGET_BYTES,
-                    backend: str = "auto", devices: Optional[int] = None,
+                    backend: str = "auto", devices: Devices = None,
                     device: DeviceLike = "cuda",
                     ) -> Iterator[Tuple[np.ndarray, np.ndarray,
                                         Optional[np.ndarray]]]:
@@ -312,32 +321,34 @@ def distance_blocks(g: Graph, block: Optional[int] = None,
     Lets metrics consume all-pairs information in O(block * (n + E)) memory
     without ever materializing an [n, n] table.  `backend`/`devices`
     select the blockwise executor backend: "host" is the sequential
-    reference loop, "sharded" runs the BFS on `device` one block at a time
+    reference loop, "sharded" runs the BFS one block a device a round
     (bit-identical; degrades to the host loop on edge-free graphs), and
     "auto" (the default) stays on the host loop unless `devices > 1` is
-    requested and that many cards exist.
+    requested and that many devices exist.  `devices` is a count
+    (`cuda:0 .. cuda:ndev - 1`, `device` alone where that is one; None:
+    `device` alone) or an explicit list of devices
+    (`parallel.blockwise.resolve_devices`).
     """
     indptr, indices = g.csr
     if block is None:
         block = bfs_block_size(g.n, len(indices), budget_bytes)
-    ndev = _resolve_devices(backend, devices)
+    ndev, twins = _device_run(backend, devices, device,
+                              lambda d: _bfs_device_fn(g, next_hop, d))
     plan = plan_blocks(g.n, block=block, devices=ndev)
 
     def host_fn(srcs):
         dist, nh = _bfs_block(indptr, indices, srcs, next_hop)
         return (dist, nh) if next_hop else (dist,)
 
-    device_fn = (_bfs_device_fn(g, next_hop, device)
-                 if _device_run(backend, ndev) else None)
     for srcs, outs in run_blocks(
-            np.arange(g.n, dtype=np.int64), plan, host_fn, device_fn,
-            backend="host" if device_fn is None else backend):
+            np.arange(g.n, dtype=np.int64), plan, host_fn, twins,
+            backend="host" if twins is None else backend):
         yield srcs, outs[0], outs[1] if next_hop else None
 
 
 def sparse_routing_tables(g: Graph, block: Optional[int] = None,  # reprolint-torch: allow[dense-square] -- contract IS the full [n, n] table pair; built block-by-block, only the output is dense
                           backend: str = "auto",
-                          devices: Optional[int] = None,
+                          devices: Devices = None,
                           device: DeviceLike = "cuda",
                           ) -> Tuple[np.ndarray, np.ndarray]:
     """Full ([n, n] int16 distances, [n, n] int32 next hops) via the blocked
@@ -462,7 +473,7 @@ def _dest_device_fn(g: Graph, device: DeviceLike):
 def destination_blocks(g: Graph, dests: Optional[np.ndarray] = None,
                        block: Optional[int] = None,
                        budget_bytes: int = _BFS_BUDGET_BYTES,
-                       backend: str = "auto", devices: Optional[int] = None,
+                       backend: str = "auto", devices: Devices = None,
                        device: DeviceLike = "cuda",
                        ) -> Iterator[Tuple[np.ndarray, np.ndarray,
                                            np.ndarray]]:
@@ -485,18 +496,17 @@ def destination_blocks(g: Graph, dests: Optional[np.ndarray] = None,
     dests = np.asarray(dests, dtype=np.int64).ravel()
     if block is None:
         block = dest_block_size(g.n, len(indices), nb.shape[1], budget_bytes)
-    ndev = _resolve_devices(backend, devices)
+    ndev, twins = _device_run(backend, devices, device,
+                              lambda d: _dest_device_fn(g, d))
     plan = plan_blocks(len(dests), block=block, devices=ndev)
 
     def host_fn(dblk):
         dist_rows, _ = _bfs_block(indptr, indices, dblk, False)
         return dist_rows, _next_hop_rows(nb, dblk, dist_rows)
 
-    device_fn = (_dest_device_fn(g, device)
-                 if _device_run(backend, ndev) else None)
     for dblk, (dist_rows, nh_rows) in run_blocks(
-            dests, plan, host_fn, device_fn,
-            backend="host" if device_fn is None else backend):
+            dests, plan, host_fn, twins,
+            backend="host" if twins is None else backend):
         yield (dblk, np.ascontiguousarray(dist_rows.T),
                np.ascontiguousarray(nh_rows.T))
 
@@ -517,8 +527,8 @@ class BlockedRouting:
     diameter: int
     block: int  # default destinations per block
     backend: str = "auto"  # blockwise executor backend for column sweeps
-    devices: Optional[int] = None  # device count for backend="sharded"
-    device: DeviceLike = "cuda"  # where backend="sharded" runs the blocks
+    devices: Devices = None  # device count or list for backend="sharded"
+    device: DeviceLike = "cuda"  # the one device where devices resolve to one
 
     def dest_blocks(self, dests: Optional[np.ndarray] = None,
                     block: Optional[int] = None,
@@ -533,7 +543,7 @@ def build_blocked_routing(g: Graph, block: Optional[int] = None,
                           budget_bytes: int = _BFS_BUDGET_BYTES,
                           diameter: Optional[int] = None,
                           backend: str = "auto",
-                          devices: Optional[int] = None,
+                          devices: Devices = None,
                           device: DeviceLike = "cuda",
                           ) -> BlockedRouting:
     """Streaming counterpart of `build_routing`: computes the diameter via

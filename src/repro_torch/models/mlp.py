@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.profiler import named_scope
-from ..parallel.sharding import (P, batch_axes, constrain, mesh_axis_sizes,
-                                 placements, replicate_like)
+from ..parallel.sharding import (P, batch_axes, constrain, is_dtensor,
+                                 mesh_axis_sizes, placements, replicate_like)
 from .common import ParamDef
 from .config import ModelConfig
 
@@ -48,20 +48,40 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamDef
     return defs
 
 
+def _ff_weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`w` in `x`'s dtype and, for a DTensor `x`, laid out as GSPMD lays
+    out an FFN weight for the product: replicated over the mesh dims that
+    `x`'s batch is sharded on (the weight shard is gathered, not the
+    [B, S, d] activation, which DTensor's matmul strategy would gather),
+    every other placement kept (the ``ff`` dim stays sharded over
+    "model").  The redistribute's backward lays the gradient out as the
+    parameter (a reduce-scatter over the batch's dims).  On a plain
+    tensor, or a mesh of one, the same bits as ``w.to(x.dtype)``."""
+    w = replicate_like(w, x).to(x.dtype)
+    if not is_dtensor(x):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    places = [Replicate() if isinstance(xp, Shard) and xp.dim == 0 else wp
+              for xp, wp in zip(x.placements, w.placements)]
+    return w.redistribute(w.device_mesh, places)
+
+
 def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    dt = x.dtype
+    def w(name):
+        return _ff_weight(p[name], x)
+
     if cfg.mlp == "swiglu":
-        h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
+        h = F.silu(x @ w("wg")) * (x @ w("wu"))
     elif cfg.mlp == "geglu":  # gemma / recurrentgemma gated GeLU
-        h = F.gelu(x @ p["wg"].to(dt), approximate="tanh") \
-            * (x @ p["wu"].to(dt))
+        h = F.gelu(x @ w("wg"), approximate="tanh") * (x @ w("wu"))
     elif cfg.mlp == "relu2":  # nemotron squared ReLU
-        h = torch.square(F.relu(x @ p["wu"].to(dt)))
+        h = torch.square(F.relu(x @ w("wu")))
     elif cfg.mlp == "gelu":
-        h = F.gelu(x @ p["wu"].to(dt), approximate="tanh")
+        h = F.gelu(x @ w("wu"), approximate="tanh")
     else:
         raise ValueError(cfg.mlp)
-    return h @ p["wd"].to(dt)
+    return h @ _ff_weight(p["wd"], h)
 
 
 # ----------------------------------------------------------------------------
