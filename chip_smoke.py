@@ -21,9 +21,12 @@ encoder-decoder (whisper-base), each at its full published width, and
 the training path (qwen2-0.5b at its full width, through the
 tensor-core flash-attention backward kernel), the sharded path (the
 same training and the deepseek-moe-16b prefill on a (1, 1) DeviceMesh),
-and the launch tools' cells on one card (qwen2-0.5b's decode_32k and
-train_4k at their planned memory).  Each path's kernel counts are set to
-0 just before it and read just after.  Phases, one JSON line each
+the launch tools' cells on one card (qwen2-0.5b's decode_32k and
+train_4k at their planned memory), and the sharded path with one process
+a card over every visible card (up to four: qwen3-4b's train_4k step at
+the plan that needs four cards, expert parallelism, GPipe, elastic
+restarts, decode).  Each path's kernel counts are set to 0 just before
+it and read just after.  Phases, one JSON line each
 (``python3 chip_smoke.py train`` runs the named phases alone, a
 development run that then fails for the kernels it did not launch):
 
@@ -287,8 +290,8 @@ development run that then fails for the kernels it did not launch):
              experts, an all-reduce over a group of one; the parameters
              the meshless model's, not copied): logits bit for bit, 28
              sm90 launches, both walls after a warm-up at the same shape.
-             `parallel.pipeline.gpipe` has no card check: one card is one
-             stage (its CPU test runs 4 gloo ranks)
+             `parallel.pipeline.gpipe` runs its card check in ``cards``
+             (one stage a card)
   launch     the launch tools on one card (`launch.cells`, `roofline`,
              `cost`, `dryrun`, `memdebug`): the card's name and power
              limit, a measured bf16 GEMM rate (8192^3 `torch.matmul`) and
@@ -311,6 +314,56 @@ development run that then fails for the kernels it did not launch):
              wall; and memdebug's card mode: the 10 largest blocks live at
              the peak of a step of 8 sequences at the same microbatch
              size, under `torch.cuda.memory._record_memory_history`
+  cards      the sharded path with one process a card (``launch.ranks.
+             run_ranks``: torch.multiprocessing spawn, NCCL through a
+             FileStore in a temp dir, ``cuda:r`` for rank r, a deadline)
+             over every visible card, rounded down to a world of 4, 2 or
+             1 ranks: a (2, 2), (1, 2) or (1, 1) ("data", "model") mesh.
+             Card 0 is freed of this script's tensors and cached blocks
+             first.  The rank functions are ``launch.cards``'
+             (``CARD_PARTS``), each part held against the port's own
+             meshless run on card 0, every rank's seeded draws held bit
+             for bit equal: qwen3-4b float32 at full width, 2 layers (B =
+             4, S = 512): one sharded step under DEFAULT_RULES, with
+             sequence parallelism, under FSDP_RULES and with 2
+             microbatches against the meshless step (loss 1e-5, every
+             gradient leaf 2e-5 of its largest magnitude, every updated
+             parameter 2e-5 where its gradient is at least 1e-6);
+             greedy decode of qwen2-0.5b and deepseek-moe-16b (full
+             width, 2 layers, float32, B = 4, 8 steps): tokens equal,
+             logits within 1e-5; deepseek-moe-16b's S = 4096 prefill
+             through expert parallelism on (1, world) (16 local experts
+             a card on four), float32 at 4 layers with every MoE
+             routing observed: the ranks' logits and routes and a second
+             run bit for bit equal, every token whose experts differ
+             from the meshless run's a near tie (or a capacity drop
+             after one in its group), the tokens no such token reaches
+             within 1e-5 (relative RMS), each MoE layer alone within
+             1e-5 at every token; bf16 at 28 layers: the greedy next
+             token equal, the EP logits' distance from the float32
+             prefill of the same parameter values within 1.1x the
+             meshless bf16 logits', 28 sm90 launches a rank, both walls;
+             elastic: the 2-layer qwen3-4b state after 2 steps saved on
+             the world, restored onto a new world of half the cards and
+             onto no mesh, one step each and one on the live state, the
+             losses within 1e-4 (a world of one runs neither elastic,
+             having no smaller world, nor the bf16 prefill, which the
+             ``sharded`` phase runs on (1, 1)); on four cards qwen3-4b `train_4k` at full depth,
+             bf16, planned by `plan_cell` on the live (2, 2) mesh at the
+             card's memory, one step of 2 of the plan's microbatches
+             (the state whole, the peak one microbatch): a finite loss,
+             wall, 144 sm90 + 72 tensor-core backward launches a rank,
+             the peak beside the plan's estimate, a profile (NCCL
+             kernels by name, device busy and idle share), the bus rates
+             of the step's collectives and its roofline bound at that
+             link rate (with fewer cards the line says this part needs
+             four); both sm90 flash kernels timed on each rank's card at
+             that step's local attention shape; `gpipe` of tanh(x @ w_i)
+             over one stage a card (D = 4096, 8 microbatches of 256,
+             float32) within 2e-5 of the stack run in order on card 0.
+             Each rank's flash launches (and the cards their inputs lay
+             on) are on the phase's line, not in the kernel line.  The
+             per-rank records go to build/chip_smoke_cards.json
 
 The kernels phase also holds both flash-attention kernels against their
 plain version: the sm90 tensor-core kernel (csrc/flash_attention_sm90.cu,
@@ -482,6 +535,9 @@ LAUNCH = {"arch": "qwen2-0.5b", "gemm_n": 8192, "copy_bytes": 4 << 30,
                           "layers": 2, "batch": 4, "max_seq": 64,
                           "steps": 8},
           "memdebug_batch": 8, "top": 10}
+# the cards phase (`launch.cards.CARD_PARTS`): the deadlines of its two
+# worlds; a rank still running then is killed and the phase fails
+CARDS = {"deadline_s": 600, "restore_deadline_s": 240}
 
 
 def emit(obj):
@@ -3270,7 +3326,7 @@ def world_of_one(torch):
     d = tempfile.mkdtemp(prefix="chip_smoke_store_")
     dist.init_process_group("nccl", store=dist.FileStore(
         os.path.join(d, "store"), 1), rank=0, world_size=1,
-        device_id=torch.device("cuda", 0))
+        device_id=torch.device("cuda", torch.cuda.current_device()))
     return d
 
 
@@ -3794,6 +3850,257 @@ def phase_launch(torch, state):
     return out
 
 
+def free_card(torch, state):
+    """Drop every CUDA tensor that `state` holds (at any depth of its
+    dicts), then the allocator's cached blocks: card 0 is rank 0's in
+    ``cards``.  What is left on it: allocated and reserved bytes."""
+    import gc
+
+    def walk(d):
+        for k in list(d):
+            if isinstance(d[k], torch.Tensor) and d[k].is_cuda:
+                del d[k]
+            elif isinstance(d[k], dict):
+                walk(d[k])
+
+    walk(state)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def cards_summary(ranks, restore):
+    """The phase line's view of the per-rank records: each rank's card,
+    flash launches by part and the cards they ran on, peaks, walls."""
+    out = []
+    for r in ranks:
+        row = {"rank": r["rank"], "device": r["device"],
+               "card": r.get("card")}
+        for part, rec in r.items():
+            if not isinstance(rec, dict):
+                continue
+            if part == "train_check":
+                row[part] = {n: {"flash_launches": v["flash_launches"],
+                                 "flash_devices": v["flash_devices"],
+                                 "step_wall_s": v["step_wall_s"]}
+                             for n, v in rec["variants"].items()}
+            elif part == "decode":
+                row[part] = {a: {"flash_launches": v["flash_launches"],
+                                 "flash_devices": v["flash_devices"]}
+                             for a, v in rec.items() if isinstance(v, dict)}
+            else:
+                row[part] = {k: rec[k] for k in (
+                    "flash_launches", "flash_devices", "wall_s",
+                    "fwd_sm90_ms", "bwd_sm90_ms", "max_memory_allocated",
+                    "part_peak_bytes", "part_s", "loss") if k in rec}
+        out.append(row)
+    return {"ranks": out, "restore_ranks": restore}
+
+
+def phase_cards(torch, state):
+    """The sharded path with one rank a card (module docstring,
+    ``cards``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import cards
+    from repro_torch.launch.ranks import RankFailure, run_ranks
+
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    n = torch.cuda.device_count()
+    world = cards.world_for(n)
+    parts = dict(cards.CARD_PARTS)
+    out = {"cards_visible": n, "world": world,
+           "mesh": list(cards.MESH_SHAPES[world]), "backend": "nccl",
+           "nvidia_smi": nvidia_smi(),
+           "card0_before_spawn": free_card(torch, state)}
+    if world < 4:
+        del parts["train_4k"]
+        out["train_4k"] = (f"not run: qwen3-4b train_4k at its plan needs "
+                           f"four cards, {n} visible")
+    if world == 1:  # on (1, 1) every collective is an identity
+        del parts["elastic_save"], parts["moe_prefill"]
+        out["elastic"] = ("not run: a world of one has no smaller world to "
+                          "restore onto")
+        out["moe_prefill"] = ("not run on a world of one: the sharded "
+                              "phase ran the bf16 EP prefill on (1, 1)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    full = {}
+    try:
+        t = time.perf_counter()
+        try:
+            ranks = run_ranks(cards.rank_cards, world, tmp, "cuda", parts,
+                              timeout=CARDS["deadline_s"])
+        except RankFailure:
+            full["partial"] = [json.load(open(os.path.join(tmp, f)))
+                               for f in sorted(os.listdir(tmp))
+                               if f.endswith(".parts.json")]
+            raise
+        out["world_s"] = time.perf_counter() - t
+        full["ranks"] = ranks
+        restore = None
+        if "elastic_save" in parts:
+            t = time.perf_counter()
+            restore = run_ranks(cards.rank_elastic_restore, world // 2, tmp,
+                                "cuda", parts["elastic_save"],
+                                timeout=CARDS["restore_deadline_s"])
+            out["restore_world_s"] = time.perf_counter() - t
+            full["restore"] = restore
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with open(os.path.join(ROOT, "build", "chip_smoke_cards.json"),
+                  "w") as fh:
+            json.dump(full, fh, indent=1)
+    out.update(cards_record(ranks, restore, check))
+    if problems:
+        raise AssertionError(f"cards phase failed its checks: {problems}")
+    return out
+
+
+def cards_record(ranks, restore, check):
+    """The cards phase's line from its ranks' records (`launch.cards.
+    rank_cards`) and the restore world's (None where no part ``elastic_
+    save`` ran), each bar held through `check(ok, what)`."""
+    import numpy as np
+
+    from repro_torch.launch import cards
+
+    out = {}
+    r0 = ranks[0]
+    for r in ranks:
+        own = f"cuda:{r['rank']}"
+        check(r["device"] == own, f"rank {r['rank']} on {r['device']}")
+        for part, rec in r.items():
+            if not isinstance(rec, dict):
+                continue
+            recs = list(rec["variants"].values()) if part == "train_check" \
+                else [v for v in rec.values() if isinstance(v, dict)
+                      and "flash_devices" in v] if part == "decode" \
+                else [rec]
+            for x in recs:
+                check(set(x.get("flash_devices", {})) <= {own},
+                      f"rank {r['rank']} {part}: flash launches on "
+                      f"{x.get('flash_devices')}")
+            draws = [rec.get("draws_equal", True)] if part != "decode" \
+                else [v["draws_equal"] for v in rec.values()
+                      if isinstance(v, dict)]
+            check(all(draws), f"rank {r['rank']} {part}: seeded draws "
+                              f"differ between ranks")
+
+    # qwen3-4b float32, one step a variant
+    tc = r0["train_check"]
+    out["train_check"] = {
+        "mesh": tc["mesh"], "layers": tc["layers"], "batch": tc["batch"],
+        "seq": tc["seq"], "bars": cards.TRAIN_BARS,
+        "variants": {n: {k: v[k] for k in (
+            "loss", "loss_meshless", "loss_err", "worst_grad_leaf",
+            "worst_grad_of_max", "worst_param_err", "params_past_bar",
+            "step_wall_s", "ok")} for n, v in tc["variants"].items()}}
+    for name, v in tc["variants"].items():
+        check(v["ok"], f"train_check {name}: loss err {v['loss_err']}, "
+                       f"{v['worst_grad_leaf']} {v['worst_grad_of_max']}, "
+                       f"params past the bar {v['params_past_bar']}")
+        for r in ranks:
+            fl = r["train_check"]["variants"][name]["flash_launches"]
+            check(fl["simt"] > 0 and fl["bwd"] > 0,
+                  f"rank {r['rank']} train_check {name}: flash {fl}")
+
+    # decode
+    dec = {a: {k: v[k] for k in ("tokens_equal", "logits_max_abs_err",
+                                 "logits_within", "ok")}
+           for a, v in r0["decode"].items() if isinstance(v, dict)}
+    out["decode"] = {"mesh": r0["decode"]["mesh"], "tol": cards.DECODE_TOL,
+                     "archs": dec}
+    for r in ranks:
+        for a, v in r["decode"].items():
+            if isinstance(v, dict):
+                check(v["ok"], f"rank {r['rank']} decode {a}: tokens "
+                               f"{v['tokens_equal']}, logits err "
+                               f"{v['logits_max_abs_err']}")
+
+    # EP prefill, float32 at cut depth
+    me = r0["moe_ep"]
+    out["moe_ep"] = {k: me[k] for k in (
+        "mesh", "config", "layers", "dtype", "seq", "experts_local", "tol",
+        "deterministic", "ranks_equal", "whole", "alone", "wall_s",
+        "meshless_wall_s", "ok")}
+    check(me["ok"], f"float32 EP prefill: {out['moe_ep']}")
+    want = {"sm90": 0, "simt": me["layers"], "bwd": 0, "bwd_sm90": 0}
+    for r in ranks:
+        fl = r["moe_ep"]["flash_launches"]
+        check(fl == want, f"rank {r['rank']} float32 EP prefill flash {fl}")
+        check(r["moe_ep"]["ranks_equal"]
+              and all(a["ranks_equal"] for a in r["moe_ep"]["alone"]),
+              f"rank {r['rank']} float32 EP: ranks' logits or routes "
+              f"differ")
+
+    # EP prefill, bf16 at full depth
+    if "moe_prefill" in r0:
+        mp = r0["moe_prefill"]
+        out["moe_prefill"] = {k: mp[k] for k in (
+            "mesh", "config", "layers", "dtype", "seq", "experts_local",
+            "meshless_vs_float32", "ep_vs_float32", "ep_vs_float32_bar",
+            "ep_over_meshless", "rel_rms", "max_abs_err", "logits_max_abs",
+            "argmax_agree_share", "next_token", "next_token_meshless",
+            "wall_s", "meshless_wall_s", "ok")}
+        out["moe_prefill"]["slack"] = cards.EP_BF16_SLACK
+        out["moe_prefill"]["wall_s_by_rank"] = [
+            r["moe_prefill"]["wall_s"] for r in ranks]
+        check(mp["ok"], f"EP prefill: next token {mp['next_token']} / "
+                        f"{mp['next_token_meshless']}, from float32 "
+                        f"{mp['ep_vs_float32']} (meshless "
+                        f"{mp['meshless_vs_float32']})")
+        want = {"sm90": mp["layers"], "simt": 0, "bwd": 0, "bwd_sm90": 0}
+        for r in ranks:
+            fl = r["moe_prefill"]["flash_launches"]
+            check(fl == want, f"rank {r['rank']} EP prefill flash {fl}")
+
+    # elastic
+    if restore is not None:
+        es = r0["elastic_save"]
+        losses = {"live": es["loss_next_live"],
+                  "restored_mesh": restore[0]["loss_restored_mesh"],
+                  "restored_meshless": restore[0]["loss_restored_meshless"]}
+        spread = max(losses.values()) - min(losses.values())
+        out["elastic"] = {
+            "saved_on": es["mesh"], "restored_on": restore[0]["mesh"],
+            "saved_step": es["saved_step"], "losses_before": es["losses"],
+            "save_s": es["save_s"], "restore_s": restore[0]["restore_s"],
+            "step_losses": losses, "spread": spread,
+            "tol": cards.ELASTIC_TOL,
+            "ok": check(np.isfinite(list(losses.values())).all()
+                        and spread <= cards.ELASTIC_TOL,
+                        f"elastic losses {losses}")}
+
+    # GPipe
+    gp = r0["gpipe"]
+    out["gpipe"] = {k: gp[k] for k in (
+        "stages", "d", "layers", "microbatches", "mb", "max_abs_err",
+        "wall_s", "in_order_wall_s", "ok")}
+    out["gpipe"]["tol"] = cards.GPIPE_TOL
+    check(gp["ok"], f"gpipe max abs err {gp['max_abs_err']}")
+
+    # the flash kernels on each card
+    out["flash_by_card"] = [r["flash"] for r in ranks if "flash" in r]
+
+    # qwen3-4b train_4k, four cards
+    if "train_4k" in r0:
+        out["train_4k"], problems = cards.train_4k_summary(ranks)
+        for what in problems:
+            check(False, what)
+    out["per_rank"] = cards_summary(ranks, restore)
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -3825,7 +4132,8 @@ def main():
               ("encdec", phase_encdec, (torch, state)),
               ("train", phase_train, (torch, state)),
               ("sharded", phase_sharded, (torch, state)),
-              ("launch", phase_launch, (torch, state))]
+              ("launch", phase_launch, (torch, state)),
+              ("cards", phase_cards, (torch, state))]
     # `python3 chip_smoke.py train ...` runs the named phases alone (a
     # development run: the kernel line then misses the others' kernels and
     # the run fails)

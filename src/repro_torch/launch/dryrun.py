@@ -91,7 +91,8 @@ def hbm_bytes(hbm_gb: Optional[float]) -> float:
     """Device memory in bytes: the card's where one is present, else
     `hbm_gb` GB; ValueError with neither (the dry run assumes no size)."""
     if torch.cuda.is_available():
-        return float(torch.cuda.get_device_properties(0).total_memory)
+        return float(torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory)
     if hbm_gb is None:
         raise ValueError("no card to read the device memory from: pass "
                          "--hbm-gb")
@@ -374,7 +375,7 @@ def card_step(arch: str, shape_name: str, extra: Optional[dict] = None,
     cfg = get_config(arch)
     hbm = hbm_bytes(None)
     plan = _plan(cfg, shape_name, "one", hbm, extra)
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     call, _, remat = _cell_call(cfg, plan, shape_name, None, dev,

@@ -22,7 +22,7 @@ all-to-all: activations are replicated across the TP axis between blocks.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,9 +34,15 @@ from .common import ParamDef
 from .config import ModelConfig
 
 __all__ = ["mlp_defs", "mlp_apply", "moe_defs", "moe_route", "moe_dispatch",
-           "moe_apply", "MoeRoute", "NEG_INF"]
+           "moe_apply", "router_probs", "MoeRoute", "NEG_INF",
+           "OBSERVERS"]
 
 NEG_INF = -1e30
+# called ``fn(x2d, router, route)`` after each routing in `_moe_local`,
+# on the tensors it routed (a shard's local ones under expert
+# parallelism): `launch.cards` compares expert parallel routes with
+# meshless ones
+OBSERVERS: List[Callable] = []
 
 
 def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
@@ -125,6 +131,16 @@ class MoeRoute(NamedTuple):
     within: torch.Tensor
 
 
+def router_probs(router: torch.Tensor, x2d: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """[T, E]: the router's float32 softmax over the experts (pad experts'
+    logits at NEG_INF)."""
+    logits = x2d.float() @ router.float()
+    if cfg.num_experts < cfg.experts_padded:  # mask padded experts
+        logits[..., cfg.num_experts:] = NEG_INF
+    return torch.softmax(logits, dim=-1)
+
+
 def moe_route(router: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig,
               capacity: int) -> MoeRoute:
     """The reference's router on x2d [T, d] (``_moe_local``'s first half):
@@ -138,10 +154,7 @@ def moe_route(router: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig,
     ngroups = t // g
     # Python integer arithmetic, as the reference's
     cap = max(1, int(capacity * g / t)) if capacity < t * k else g * k
-    logits = (x2d.float() @ router.float()).view(ngroups, g, e_total)
-    if cfg.num_experts < e_total:  # mask padded experts
-        logits[..., cfg.num_experts:] = NEG_INF
-    probs = torch.softmax(logits, dim=-1)
+    probs = router_probs(router, x2d, cfg).view(ngroups, g, e_total)
     gate, idx = torch.topk(probs, k, dim=-1)  # [G, g, K], largest first
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     # exclusive running count of each expert over the group's slots, laid
@@ -214,6 +227,8 @@ def _moe_local(p, x2d: torch.Tensor, cfg: ModelConfig, e_start: int,
     t, d = x2d.shape
     with named_scope("moe.route"):
         r = moe_route(p["router"], x2d, cfg, capacity)
+        for fn in OBSERVERS:
+            fn(x2d, p["router"], r)
     with named_scope("moe.dispatch"):
         xe, row = moe_dispatch(x2d, r, cfg, e_start, e_local)
     with named_scope("moe.experts"):

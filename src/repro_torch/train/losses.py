@@ -29,47 +29,90 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     one card it is a gather here: the contraction adds V - 1 exact zeros
     to the label's logit, so the two give the same bits, and the gather
     neither builds the [B, S, V] one-hot nor reads the logits a second
-    time.  On a mesh the logits are a DTensor (`_label_logits`,
-    `_logsumexp`)."""
-    lse = _logsumexp(logits)
-    ll = _label_logits(logits, targets.long())
+    time.  On a mesh the logits are a DTensor; where its vocab dim is
+    sharded, `_VocabParallelCE` takes the logsumexp and the label's logit
+    together."""
+    targets = targets.long()
+    if _vocab_sharded(logits):
+        lse, ll = _VocabParallelCE.apply(logits, targets)
+    else:  # one card, or a mesh of one: its bits
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = _label_logits(logits, targets)
     nll = (lse - ll).mean()
     if z_loss:
         nll = nll + z_loss * lse.square().mean()
     return nll
 
 
-def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
-    """``torch.logsumexp(logits, -1)``.  For a DTensor whose vocab dim is
-    sharded, vocab-parallel, as GSPMD partitions the reference's: each
-    rank's row max and sum of ``exp(x - max)`` over its columns, reduced
-    over the vocab's mesh dims ([B, S] values), where DTensor's own
-    logsumexp would first gather every rank's whole [B, S, V] row block
-    (40 GB a device for qwen2-0.5b's ``train_4k`` cell on 256 devices),
-    and its backward would gather them again: the gradient, the softmax
-    ``exp(x - lse)``, is formed here on each rank's columns."""
-    if not is_dtensor(logits) or not any(
-            getattr(p, "dim", None) in (-1, logits.dim() - 1)
-            and logits.device_mesh.size(i) > 1
-            for i, p in enumerate(logits.placements)):
-        return torch.logsumexp(logits, dim=-1)  # (a mesh of one: its bits)
-    return _VocabParallelLSE.apply(logits)
+def _vocab_sharded(logits: torch.Tensor) -> bool:
+    return is_dtensor(logits) and any(
+        getattr(p, "dim", None) in (-1, logits.dim() - 1)
+        and logits.device_mesh.size(i) > 1
+        for i, p in enumerate(logits.placements))
 
 
-class _VocabParallelLSE(torch.autograd.Function):
-    """`_logsumexp` of a DTensor with a sharded vocab dim."""
+class _VocabParallelCE(torch.autograd.Function):
+    """(logsumexp, label logit) of a DTensor x [B, S, V] whose vocab dim
+    is sharded, vocab-parallel, as GSPMD partitions the reference's.  The
+    logsumexp: each rank's row max and sum of ``exp(x - max)`` over its
+    columns, reduced over the vocab's mesh dims ([B, S] values), where
+    DTensor's own logsumexp would first gather every rank's whole
+    [B, S, V] row block (40 GB a device for qwen2-0.5b's ``train_4k``
+    cell on 256 devices), and its backward would gather them again.  The
+    label's logit: `_label_logits`.  The gradient is formed on each
+    rank's columns in one [B, S, V / tp] float32 buffer, in place:
+    ``exp(x - lse) g_lse``, plus ``g_ll`` at each label's column -- the
+    same operations in the same order as autograd's two branches and
+    their sum, which held four such buffers at once (F9: 4 x 9.27 GiB in
+    qwen3-4b's ``train_4k`` step on (2, 2), which did not fit)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, targets):
         m = x.amax(dim=-1, keepdim=True)
-        lse = (x - m).exp().sum(dim=-1).log() + m.squeeze(-1)
-        ctx.save_for_backward(x, lse)
-        return lse
+        lse = (x - m).exp_().sum(dim=-1).log() + m.squeeze(-1)
+        ll = _label_logits(x, targets)
+        ll = ll.redistribute(ll.device_mesh, lse.placements)
+        ctx.save_for_backward(x, lse, targets)
+        return lse, ll
 
     @staticmethod
-    def backward(ctx, g):
-        x, lse = ctx.saved_tensors
-        return g.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp()
+    def backward(ctx, g_lse, g_ll):
+        from ..parallel.compat import local_map
+
+        x, lse, targets = ctx.saved_tensors
+        g = (x - lse.unsqueeze(-1)).exp_().mul_(g_lse.unsqueeze(-1))
+        rows, start = _label_layout(g, targets)
+
+        def add_at(gl, gr, tg, cols):
+            idx = tg - cols[0]
+            hit = (idx >= 0) & (idx < gl.shape[-1])
+            return gl.scatter_add_(
+                -1, idx.clamp(0, gl.shape[-1] - 1)[..., None],
+                torch.where(hit, gr, torch.zeros_like(gr))[..., None])
+
+        g = local_map(add_at, out_placements=list(g.placements),
+                      in_placements=(g.placements, rows, rows,
+                                     start.placements),
+                      device_mesh=g.device_mesh, redistribute_inputs=True)(
+            g, g_ll, replicate_like(targets, g), start)
+        return g, None
+
+
+def _label_layout(logits, targets):
+    """(the placements of a label pick's rows: the logits' but for the
+    vocab's mesh dims, replicated there; each rank's first vocab column as
+    a DTensor laid out as the logits' vocab dim)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, v = logits.device_mesh, logits.shape[-1]
+    vocab = [isinstance(p, Shard) and p.dim % logits.dim() == logits.dim() - 1
+             for p in logits.placements]
+    start = DTensor.from_local(torch.arange(v, device=targets.device), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+    start = start.redistribute(mesh, [Shard(0) if s else Replicate()
+                                      for s in vocab])
+    rows = [Replicate() if s else p for s, p in zip(vocab, logits.placements)]
+    return rows, start
 
 
 def _label_logits(logits: torch.Tensor,
@@ -81,16 +124,10 @@ def _label_logits(logits: torch.Tensor,
     gather's value."""
     if not is_dtensor(logits):
         return logits.gather(-1, targets[..., None])[..., 0]
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Shard
     from ..parallel.compat import local_map
 
-    mesh, v = logits.device_mesh, logits.shape[-1]
-    vocab = [isinstance(p, Shard) and p.dim % logits.dim() == logits.dim() - 1
-             for p in logits.placements]
-    start = DTensor.from_local(torch.arange(v, device=targets.device), mesh,
-                               [Replicate()] * mesh.ndim, run_check=False)
-    start = start.redistribute(mesh, [Shard(0) if s else Replicate()
-                                      for s in vocab])
+    rows, start = _label_layout(logits, targets)
 
     def pick(lg, tg, cols):
         idx = tg - cols[0]
@@ -98,11 +135,13 @@ def _label_logits(logits: torch.Tensor,
         got = lg.gather(-1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
         return torch.where(hit, got, torch.zeros_like(got))
 
-    rows = [Replicate() if s else p for s, p in zip(vocab, logits.placements)]
+    vocab = [isinstance(p, Shard) and p.dim % logits.dim() == logits.dim() - 1
+             for p in logits.placements]
     return local_map(pick, out_placements=[Partial() if s else p for s, p
                                            in zip(vocab, rows)],
                      in_placements=(logits.placements, rows, start.placements),
-                     device_mesh=mesh, redistribute_inputs=True)(
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(
         logits, replicate_like(targets, logits), start)
 
 

@@ -1,7 +1,8 @@
 """Multi-rank helpers for the port's sharding tests: gloo processes on the
 CPU, and the rank functions they run.
 
-`run_ranks(fn, world, tmp_path, *args)` spawns `world` processes, joins
+`run_ranks(fn, world, tmp_path, *args)` is the port's launcher
+(`repro_torch.launch.ranks`) on gloo: it spawns `world` processes, joins
 them in a gloo process group through a FileStore in `tmp_path` (never a
 fixed port, so tests under pytest-xdist do not collide), runs
 ``fn(rank, world, tmp_path, *args)`` in each and waits at most
@@ -14,56 +15,20 @@ nor the JAX package.  Inputs and outputs go through .npz files in
 `tmp_path`; rank 0 writes the outputs.
 """
 import os
-import time
-import traceback
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
-
-
-def _entry(fn, rank, world, tmp, store, args):
-    torch.set_num_threads(1)
-    try:
-        dist.init_process_group("gloo", init_method="file://" + store,
-                                rank=rank, world_size=world)
-        fn(rank, world, tmp, *args)
-        dist.barrier()
-        dist.destroy_process_group()
-    except BaseException:
-        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
 
 
 def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 180.0):
     """``fn(rank, world, tmp_path, *args)`` on `world` gloo ranks (module
-    docstring);
-    raises AssertionError on a rank's exception or on the deadline."""
-    tmp = os.fspath(tmp_path)
-    # a fresh store file each call: a used one holds the last world's keys
-    store = os.path.join(tmp, f"store_{time.time_ns()}")
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, tmp, store, args),
-                         daemon=True) for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        p.join(5)
-    errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()
-            for r in range(world)
-            if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
-    assert not errs, "\n".join(f"rank {r}:\n{e}" for r, e in errs.items())
-    assert not hung, f"ranks {hung} still running after {timeout} s"
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * world, f"rank exit codes {codes}"
+    docstring): the port's launcher, `repro_torch.launch.ranks.run_ranks`
+    with ``backend="gloo"``; raises its `RankFailure` on a rank's
+    exception or on the deadline, and returns each rank's result."""
+    from repro_torch.launch.ranks import run_ranks as launch
+
+    return launch(fn, world, tmp_path, *args, backend="gloo",
+                  timeout=timeout)
 
 
 def save_tree(path, tree):
@@ -407,3 +372,121 @@ def rank_adafactor(rank, world, tmp, shape):
            "vc": _full(new_s["vc"])}  # every rank takes part in the gathers
     if rank == 0:
         save_tree(os.path.join(tmp, "mesh.npz"), out)
+
+
+def rank_where(rank, world, tmp, backend):
+    """Where the launcher put this rank: its rank and world as the process
+    group sees them, and its device (on NCCL, the current card)."""
+    from repro_torch.launch.ranks import rank_device
+
+    dev = str(torch.device("cuda", torch.cuda.current_device())) \
+        if backend == "nccl" else str(rank_device(backend, rank))
+    import torch.distributed as dist
+
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "device": dev, "expected": str(rank_device(backend, rank))}
+
+
+def rank_raises(rank, world, tmp):
+    """Rank 1 raises; the others wait in a collective for it."""
+    import torch.distributed as dist
+
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    dist.barrier()
+
+
+def rank_hangs(rank, world, tmp):
+    """Rank 0 never returns; the others finish."""
+    if rank == 0:
+        import time
+
+        time.sleep(3600)
+
+
+def rank_draws_differ(rank, world, tmp):
+    """`launch.cards.draws_equal` on a tree where rank 1's copy differs in
+    one bit of one element: the verdict on every rank."""
+    from repro_torch.launch.cards import draws_equal
+
+    gen = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(1000, generator=gen),
+            "b": {"c": torch.randn(7, 3, generator=gen).bfloat16()}}
+    same = draws_equal(tree)
+    if rank == 1:
+        tree["b"]["c"].view(torch.int16)[3, 1] ^= 1
+    return {"same": same, "after_flip": draws_equal(tree)}
+
+
+def rank_bus_rates(rank, world, tmp, rows):
+    """`launch.cards.bus_rate` of every (kind, dtype, bytes, g) in `rows`
+    on a (2, 2) mesh (groups of 2 and the world of 4)."""
+    from repro_torch.launch.cards import bus_rate
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"))
+    return [bus_rate(kind, nbytes, g, dtype, mesh, torch.device("cpu"),
+                     samples=2) for kind, dtype, nbytes, g in rows]
+
+
+class _TwoBranchLSE(torch.autograd.Function):
+    """The vocab-parallel logsumexp before F9's repair, for
+    `rank_ce_buffers`: its own autograd branch beside the label pick's,
+    each op out of place."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(dim=-1, keepdim=True)
+        lse = (x - m).exp().sum(dim=-1).log() + m.squeeze(-1)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp()
+
+
+def rank_ce_buffers(rank, world, tmp):
+    """F9 on a (2, 2) mesh, the vocab sharded over "model": the cross
+    entropy of vocab-sharded logits, forward and backward, under
+    `launch.memdebug.MemoryTrace`, as the port computes it
+    (`losses.cross_entropy`) and as it did before the repair (two
+    autograd branches, `_TwoBranchLSE` and the label pick): the peak live
+    bytes of each in units of one rank's logits block, and the loss and
+    gradient bits of the two."""
+    from repro_torch.launch.memdebug import MemoryTrace
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import P, constrain
+    from repro_torch.train import losses
+
+    mesh = make_mesh((2, 2), ("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 64, 2048, generator=gen) * 3
+    tg = torch.randint(0, 2048, (8, 64), generator=gen)
+    block = x.numel() // 4 * x.element_size()
+
+    def before(lg, t):
+        lse = _TwoBranchLSE.apply(lg)
+        return (lse - losses._label_logits(lg, t)).mean()
+
+    out = {}
+    for name, fn in (("before", before), ("after", losses.cross_entropy)):
+        lg = constrain(x.clone(), mesh, P("data", None, "model")).detach() \
+            .requires_grad_(True)
+        trace = MemoryTrace()
+        with trace:
+            loss = fn(lg, tg)
+            fwd = trace.peak
+            g, = torch.autograd.grad(loss, lg)
+        out[name] = {"fwd_blocks": fwd / block,
+                     "peak_blocks": trace.peak / block,
+                     "loss": loss.detach(), "grad": g.full_tensor()}
+    return {"before": {k: out["before"][k] for k in ("fwd_blocks",
+                                                      "peak_blocks")},
+            "after": {k: out["after"][k] for k in ("fwd_blocks",
+                                                    "peak_blocks")},
+            "bits_equal": bool(torch.equal(out["before"]["loss"],
+                                           out["after"]["loss"])
+                               and torch.equal(out["before"]["grad"],
+                                               out["after"]["grad"]))}

@@ -18,7 +18,7 @@ at 14 heads on a 16-way ``model`` axis (DTensor sharded the flattened (h, k)
 dim and could not split it back: `attention.merge_heads`), and the
 cross entropy's logsumexp over vocab-sharded logits (DTensor gathered
 every rank's [B, S, V] block, forward and backward: `losses.
-_logsumexp`) -- and the CLIs: a failing cell is written with ``ok:
+_VocabParallelCE`) -- and the CLIs: a failing cell is written with ``ok:
 false`` and its traceback and the CLI exits non-zero; without a card or
 ``--hbm-gb`` it refuses; `collbreak` and `memdebug` print their rows.
 """
