@@ -8,7 +8,9 @@ Builds every CUDA kernel of the port from the sources in this checkout
 on the card, checks the port on the card against the port on the CPU, and
 drives these paths through the public entry points: the paper's §VIII
 saturation path at PolarFly PF(31) (993 routers, p = 16 endpoints each,
-about 16k endpoints), the flit-level packet engine (tail latency, bursts,
+about 16k endpoints) and on the five other topologies of the paper's
+Table V at the paper's sizes (Slim Fly, two Dragonflies, Jellyfish, a fat
+tree), the flit-level packet engine (tail latency, bursts,
 a link-failure transient) at PF(31), the structural-analysis path (the
 §IV-D routing table, the §IX diameters under link failure, the blocked
 routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
@@ -73,6 +75,37 @@ development run that then fails for the kernels it did not launch):
              the adaptive modes), each with its wall seconds and kernel
              launches, against the JAX package's values recorded in
              tests/fixtures/torch_port_pf31_reference.json
+  table5     the paper's Table V comparison: bench_fig8_saturation.py's
+             grid on the five competitors of `paper_table5_configs(seed=0)`
+             at the paper's sizes, Slim Fly SF(23) (1058 routers),
+             Dragonflies DF(12, 6) and DF(6, 27) (876, 978), Jellyfish
+             (993, radix 32) and the three-level fat tree FT(18, 3) (972
+             switches, traffic on its 324 leaf switches): uniform and
+             random_perm, p = max(2, radix // 2), seed 0, min / ugal /
+             ugal_pf (ecmp alone on the fat tree), k_candidates 10,
+             `saturation_throughput(tol=0.01, engine="batched")` at 250
+             iterations (oblivious) or 1500 (adaptive), the grid read from
+             tests/fixtures/torch_port_table5_reference.json's `config`.
+             Routing tables, patterns and FlowPaths equal to the fixture's
+             sha256; oblivious saturations equal to the JAX package's,
+             adaptive ones above 0, within 0.05 and within one bisection
+             step (1/128) of the reference's, or of the band its own runs
+             with the demand one ulp up and down span where the fixture
+             has them (`ulp_band`, scripts/table5_sensitivity.py);
+             path-cost
+             launches iters + the
+             probes' schedule an adaptive run (the generic L > 4 kernel on
+             the Dragonflies and Jellyfish, whose paths are L = 6), 0 an
+             oblivious one.  Each run's [F, K, L], launch plan (`rows`, 0
+             for the generic kernel), link-load route (`loads`: "pad" or
+             "scatter"), stage seconds and the reference
+             beside the port; the PF(31) row from main_path, so the whole
+             Table V prints; then path_costs at each adaptive
+             topology's uniform ugal_pf shape (DF(6, 27)'s [112,651, 11,
+             6] among them) against its plain version (bit for bit) and
+             `embedding_bag`, timed beside its bytes bound.  The kernel
+             line's path_costs entry takes `launches_table5` and
+             `table5_shapes`
   certified  the same PF(31) flows through the certified engine
              (`certify=True`, tol 0.01, the default budget): random_perm
              ugal and ugal_pf and uniform ugal (the kernel at full width)
@@ -87,8 +120,9 @@ development run that then fails for the kernels it did not launch):
              `evaluate_load` on uniform ugal at half its saturation,
              512 steps (path_costs_f64 launches only, 2 + 33 * iters /
              32 of them).  Tracing: the random_perm
-             ugal certified saturation again with trace=True, bit-identical
-             and with trace.final_gap == cert.gap; the main path's
+             ugal_pf certified saturation again with trace=True,
+             bit-identical and with trace.final_gap == cert.gap (ugal_pf:
+             the shortest solve of the three); the main path's
              random_perm ugal uncertified saturation with trace=True,
              bit-identical to main_path's value, its solve run under
              torch.cuda.set_sync_debug_mode("error") (it reads nothing
@@ -302,14 +336,16 @@ development run that then fails for the kernels it did not launch):
              bf16 KV cache) planned by `plan_cell` at the card's memory on a
              (1, 1) `MeshShape`, one warm and one timed `decode_step`: the
              plan's estimate beside `max_memory_allocated` and the step's
-             wall; its `train_4k` cell (256 sequences of 4096, 1,048,576
-             tokens) at the plan's microbatching (the planner's candidates
-             stop at 32, so 256 microbatches of one sequence): one whole
-             step under `launch.cost`'s trace, 2 * 24 * 256 sm90 and 24 *
-             256 tensor-core backward launches, the estimate beside the
-             peak, the step's per-device FLOPs equal to the dry run's for
-             the same cell on a world of one (`dryrun --mesh one`, meta
-             tensors on the CPU, in a subprocess beside the card's work),
+             wall; its `train_4k` cell (256 sequences of 4096) at the
+             plan's microbatch size (the planner's candidates stop at 32,
+             so one sequence a microbatch), cut to 64 of the sequences
+             (`LAUNCH["train_batch"]`, 64 microbatches, 262,144 tokens):
+             one step under `launch.cost`'s trace, 2 * 24 * 64 sm90 and
+             24 * 64 tensor-core backward launches, the estimate beside
+             the peak, the step's per-device FLOPs equal to the dry run's
+             for the same cut cell on a world of one (`dryrun --mesh one
+             --batch 64 --microbatches 64`, meta tensors on the CPU, in a
+             subprocess beside the card's work),
              `roofline`'s step_bound_s on the datasheet rates beside the
              wall; and memdebug's card mode: the 10 largest blocks live at
              the peak of a step of 8 sequences at the same microbatch
@@ -424,6 +460,12 @@ PACKET_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
 # and bench_fig_tail.py's PF(79) packet point
 SCALE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                              "torch_port_scale_reference.json")
+# the paper's Table V comparison: bench_fig8_saturation.py's grid on Slim
+# Fly, the two Dragonflies, Jellyfish and the fat tree of
+# paper_table5_configs(seed=0) (the PF row is main_path's), its `config`
+# and the JAX package's results
+TABLE5_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                              "torch_port_table5_reference.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # Issue rates in lane-instructions a second, 132 SMs x lanes x 1.98 GHz.
@@ -534,7 +576,11 @@ LAUNCH = {"arch": "qwen2-0.5b", "gemm_n": 8192, "copy_bytes": 4 << 30,
           "mesh_decode": {"archs": ["qwen2-0.5b", "deepseek-moe-16b"],
                           "layers": 2, "batch": 4, "max_seq": 64,
                           "steps": 8},
-          "memdebug_batch": 8, "top": 10}
+          "memdebug_batch": 8, "top": 10,
+          # the train_4k step at 64 of the cell's 256 sequences, one a
+          # microbatch as the plan has them: a quarter of its microbatches
+          # (depth cut for the script's time limit; ~137 s at 256)
+          "train_batch": 64}
 # the cards phase (`launch.cards.CARD_PARTS`): the deadlines of its two
 # worlds; a rank still running then is killed and the phase fails
 CARDS = {"deadline_s": 600, "restore_deadline_s": 240}
@@ -1652,9 +1698,10 @@ def phase_certified(torch, state):
                              "float64 evaluate_load")})
     emit({"phase": "certified.run", **rows[-1]})
 
-    # trace=True: the certified saturation again, bit-identical
-    res, row = certified("random_perm", "ugal", trace=True)
-    plain = results["random_perm", "ugal"]
+    # trace=True: a certified saturation again, bit-identical (ugal_pf's,
+    # the shortest of the three: ~17 s against ugal's ~45)
+    res, row = certified("random_perm", "ugal_pf", trace=True)
+    plain = results["random_perm", "ugal_pf"]
     same = (res.value, res.sat_lo, res.sat_hi, res.cert) == (
         plain.value, plain.sat_lo, plain.sat_hi, plain.cert)
     row.update({"bit_identical": check(same, "traced certified result"),
@@ -2059,6 +2106,34 @@ def flow_hashes(fp):
                                                 "is_min", "first_edge")}}
 
 
+def routing_hashes(rt):
+    """sha256 of a RoutingTables' distance and next-hop tables."""
+    return {"dist": sha(rt.dist), "next_hop": sha(rt.next_hop)}
+
+
+def table5_traffic(g):
+    """bench_fig8_saturation.py's traffic on Table V topology `g`: (p,
+    hosts), p = max(2, radix // 2) endpoints a router; on a graph with leaf
+    switches (the fat tree) the hosts are those, else every router."""
+    import numpy as np
+
+    p = max(2, g.params.get("radix", 8) // 2)
+    hosts = (np.arange(g.params["leaf_switches"], dtype=np.int32)
+             if "leaf_switches" in g.params else None)
+    return p, hosts
+
+
+def table5_bar(run, step):
+    """(lo, hi) that a Table V adaptive saturation must lie in, besides
+    being above 0: the reference's `run["saturation"]`, or the least and
+    greatest of it and its runs with the demand one ulp up and down
+    (`run["ulp_band"]`, scripts/table5_sensitivity.py) where measured,
+    widened by one bisection `step` (the adaptive iterate may end a step
+    away on another device)."""
+    lo, hi = run.get("ulp_band", [run["saturation"]] * 2)
+    return lo - step, hi + step
+
+
 def kernel_path_costs_at(torch, label, fp, path_launches):
     """path_costs on a scale point's own flows (`path_cost_inputs`)
     against its plain version (bit for bit) and `embedding_bag`, timed
@@ -2094,6 +2169,15 @@ def kernel_path_costs_at(torch, label, fp, path_launches):
             "bound_ms": bound, "bound_by": "bytes", "bytes": bytes_moved,
             "bound_share": bound / ms,
             "plan": ops._path_costs_plan(n_out, l, eidx.data_ptr())}
+
+
+def synced(torch, fn):
+    """(fn(), its wall seconds), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
 
 
 def bisection_step(tol):
@@ -2143,19 +2227,12 @@ def phase_scale(torch, state):
             problems.append(what)
         return bool(ok)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
-
     def paths(rt, key):
         c = config[key]
-        pat, pattern_s = timed(lambda: make_pattern(
+        pat, pattern_s = synced(torch, lambda: make_pattern(
             "uniform", rt, p=c["p"], seed=c["seed"],
             max_flows=c["max_flows"]))
-        fp, paths_s = timed(lambda: build_flow_paths(
+        fp, paths_s = synced(torch, lambda: build_flow_paths(
             rt, pat, c["mode"], k_candidates=c["k_candidates"],
             seed=c["seed"]))
         f, k, l = fp.edges.shape
@@ -2172,7 +2249,7 @@ def phase_scale(torch, state):
     def saturation(fp, tol, iters):
         fp.device_arrays("cuda")
         before = ops.LAUNCHES
-        sat, wall = timed(lambda: saturation_throughput(
+        sat, wall = synced(torch, lambda: saturation_throughput(
             fp, tol=tol, iters=iters, engine="batched", device="cuda"))
         probes = max(1, int(np.ceil(np.log2(1.0 / tol))))
         want = (iters + sum(_probe_schedule(iters, probes))
@@ -2187,8 +2264,8 @@ def phase_scale(torch, state):
     # (a) PF(79) adaptive: fig10's scale tier, the n-source BFS on the card
     key = "pf79_ugal_pf"
     c = config[key]
-    g79, graph_s = timed(lambda: build_polarfly(c["q"]).graph)
-    rt79, routing_s = timed(lambda: build_blocked_routing(
+    g79, graph_s = synced(torch, lambda: build_polarfly(c["q"]).graph)
+    rt79, routing_s = synced(torch, lambda: build_blocked_routing(
         g79, backend="sharded", devices=ndev))
     row = {"routers": g79.n, "graph_s": graph_s,
            "routing_s": routing_s,  # the n-source BFS sweep on the card
@@ -2222,7 +2299,7 @@ def phase_scale(torch, state):
     c = config[key]
     fp8, row = paths(rt79, key)
     want = ref[key]
-    wl, workload_s = timed(lambda: make_workload(
+    wl, workload_s = synced(torch, lambda: make_workload(
         fp8, c["offered"], c["cycles"], seed=c["seed"],
         flow_sample=c["flow_sample"], max_packets=c["max_packets"]))
     row["workload_s"] = workload_s
@@ -2231,8 +2308,9 @@ def phase_scale(torch, state):
         == want["workload_sha256"], "pf79 packet workload hashes")
     del fp8
     torch.cuda.reset_peak_memory_stats()
-    res, first_s = timed(lambda: simulate_packets(wl, device="cuda"))
-    again, wall = timed(lambda: simulate_packets(wl, device="cuda"))
+    res, first_s = synced(torch, lambda: simulate_packets(wl,
+                                                          device="cuda"))
+    again, wall = synced(torch, lambda: simulate_packets(wl, device="cuda"))
     got = {"delivered": sha(res.delivered), "dropped": sha(res.dropped),
            "deliver_t_delivered": sha(res.deliver_t[res.delivered]),
            "occ_sum": sha(res.occ_sum), "occ_max": sha(res.occ_max)}
@@ -2265,9 +2343,9 @@ def phase_scale(torch, state):
     # (b) PF(157) oblivious: the blockwise-scaling LARGE tier
     key = "pf157_min"
     c, want = config[key], ref[key]
-    g, graph_s = timed(lambda: build_polarfly(c["q"]).graph)
+    g, graph_s = synced(torch, lambda: build_polarfly(c["q"]).graph)
     dests = sweep_dests(g.n, c["block"], c["sweep_blocks"])
-    cols, sweep_s = timed(lambda: list(destination_blocks(
+    cols, sweep_s = synced(torch, lambda: list(destination_blocks(
         g, dests=dests, block=c["block"], backend="sharded",
         devices=ndev)))
     # the fixture's hashes are the JAX package's host backend's columns
@@ -2280,7 +2358,7 @@ def phase_scale(torch, state):
                 "nh_cols": sha(nh)} == want["sweep_sha256"],
                "pf157 sweep hashes")}
     del cols, dist, nh
-    rt, routing_s = timed(lambda: build_blocked_routing(
+    rt, routing_s = synced(torch, lambda: build_blocked_routing(
         g, block=c["block"], diameter=c["diameter"], backend="sharded",
         devices=ndev))
     row["routing_s"] = routing_s
@@ -2309,6 +2387,151 @@ def phase_scale(torch, state):
     if problems:
         raise AssertionError(f"scale tier failed its checks: {problems}")
     return out
+
+
+def phase_table5(torch, state):
+    """The paper's Table V comparison on the card: bench_fig8_saturation.py's
+    grid on Slim Fly, the two Dragonflies, Jellyfish and the fat tree of
+    `paper_table5_configs(seed=0)`, every stage through the port, held
+    against tests/fixtures/torch_port_table5_reference.json (the JAX
+    package's run), whose `config` gives the grid: routing tables, patterns
+    and FlowPaths by their hashes, oblivious saturations equal, adaptive
+    ones above 0, within 0.05 and inside `table5_bar` (one bisection step
+    about the reference's, or about its ±1-ulp band where measured),
+    path-cost
+    launches `iters + sum(_probe_schedule)` an
+    adaptive saturation and 0 an oblivious one.  PolarFly's row is
+    main_path's PF(31) run beside its fixture, so the phase prints the
+    whole Table V, port beside reference; which topology wins is not
+    checked.  The path-cost count starts at 0 here and is read before the
+    kernel is held and timed at each adaptive topology's uniform ugal_pf
+    shape."""
+    import numpy as np
+
+    from repro_torch.core.routing import build_routing
+    from repro_torch.core.topologies import paper_table5_configs
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.simulation import (build_flow_paths, make_pattern,
+                                        saturation_throughput)
+    from repro_torch.simulation.fluid import _probe_schedule
+
+    with open(TABLE5_FIXTURE) as fh:
+        fixture = json.load(fh)
+    config, ref = fixture["config"], fixture["topologies"]
+    tol = config["tol"]
+    probes = max(1, int(np.ceil(np.log2(1.0 / tol))))
+    step = bisection_step(tol)
+    problems, rows, tops = [], [], {}
+    timed_fp, shape_launches = {}, {}
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+
+    graphs, graphs_s = synced(torch, lambda: paper_table5_configs(
+        seed=config["seed"]))
+    ops.LAUNCHES = 0  # the Table V path's count starts here
+    for name in config["topologies"]:
+        g, want = graphs[name], ref[name]
+        rt, routing_s = synced(torch, lambda: build_routing(g))
+        p, hosts = table5_traffic(g)
+        top = {"routers": g.n, "radix": g.params["radix"], "p": p,
+               "hosts": g.n if hosts is None else len(hosts),
+               "diameter": int(rt.diameter), "routing_s": routing_s}
+        top["shape_ok"] = check(
+            {k: top[k] for k in ("routers", "radix", "p", "hosts",
+                                 "diameter")}
+            == {k: want[k] for k in ("routers", "radix", "p", "hosts",
+                                     "diameter")}, f"{name} shape")
+        top["routing_hashes_equal"] = check(
+            routing_hashes(rt) == want["routing_sha256"],
+            f"{name} routing tables")
+        runs = {(r["pattern"], r["mode"]): r for r in want["runs"]}
+        for pattern in config["patterns"]:
+            pat, pattern_s = synced(torch, lambda: make_pattern(
+                pattern, rt, p=p, hosts=hosts, seed=config["seed"]))
+            for mode in config["modes"][name]:
+                r, it = runs[pattern, mode], config["iters"][mode]
+                fp, paths_s = synced(torch, lambda: build_flow_paths(
+                    rt, pat, mode, k_candidates=config["k_candidates"],
+                    seed=config["seed"]))
+                f, k, l = fp.edges.shape
+                hashes_ok = check(
+                    flow_hashes(fp) == r["sha256"]
+                    and [f, k, l, fp.num_links]
+                    == [r["flows"], r["candidates"], r["path_len"],
+                        r["num_links"]],
+                    f"{name} {pattern} {mode} FlowPaths hashes")
+                eidx, loads_rep = fp.device_arrays("cuda")[:2]
+                before = ops.LAUNCHES
+                sat, wall = synced(torch, lambda: saturation_throughput(
+                    fp, tol=tol, iters=it, engine=config["engine"],
+                    device="cuda"))
+                launches = ops.LAUNCHES - before
+                adaptive = mode in ("ugal", "ugal_pf")
+                want_l = (it + sum(_probe_schedule(it, probes))
+                          if adaptive else 0)
+                diff = abs(sat - r["saturation"])
+                lo, hi = (table5_bar(r, step) if adaptive
+                          else (r["saturation"],) * 2)
+                rows.append({
+                    "topology": name, "pattern": pattern, "mode": mode,
+                    "iters": it, "flows": f, "candidates": k,
+                    "path_len": l, "num_links": fp.num_links,
+                    "rows": ops._path_costs_plan(f * k, l,
+                                                 eidx.data_ptr())["rows"],
+                    # link loads: a padded per-link gather, or index_add_
+                    # past the pad table's entry cap
+                    "loads": loads_rep[0],
+                    "pattern_s": pattern_s, "paths_s": paths_s,
+                    "hashes_equal": hashes_ok, "saturation": sat,
+                    "reference": r["saturation"], "diff": diff,
+                    "bar": [lo, hi],
+                    "wall_s": wall, "launches": launches,
+                    "launches_expected": want_l,
+                    "ok": check(
+                        np.isfinite(sat) and 0.0 < sat <= 1.0
+                        and launches == want_l and lo <= sat <= hi
+                        and diff <= 0.05,
+                        f"{name} {pattern} {mode} saturation {sat} "
+                        f"(reference {r['saturation']}), launches "
+                        f"{launches} (want {want_l})")})
+                emit({"phase": "table5.run", **rows[-1]})
+                # the launches each [F, K, L] shape took (uniform ugal and
+                # ugal_pf share theirs)
+                shape = (name, f, k, l)
+                shape_launches[shape] = shape_launches.get(shape, 0) \
+                    + launches
+                if adaptive and (pattern, mode) == ("uniform", "ugal_pf"):
+                    timed_fp[name] = fp
+        tops[name] = top
+        emit({"phase": "table5.topology", "topology": name, **top})
+    state["table5_launches"] = ops.LAUNCHES  # the Table V path's, read here
+
+    # path_costs at each adaptive topology's uniform ugal_pf shape, the
+    # generic (L > 4) route among them (launches here are not the path's)
+    shapes = [kernel_path_costs_at(torch, f"{k} uniform ugal_pf", v,
+                                   shape_launches[(k, *v.edges.shape)])
+              for k, v in timed_fp.items()]
+    state["path_costs_table5_shapes"] = shapes
+    emit({"phase": "table5.path_costs", "shapes": shapes})
+
+    # Table V: PF(31) from main_path (when it ran) beside its fixture
+    with open(FIXTURE) as fh:
+        pf_ref = {(r["pattern"], r["mode"]): r["saturation"]
+                  for r in json.load(fh)["saturations"]}
+    grid = {"PF": {f"{pt}.{m}": {"port": state.get("main_sats", {}).get(
+        (pt, m)), "reference": v} for (pt, m), v in pf_ref.items()}}
+    for r in rows:
+        grid.setdefault(r["topology"], {})[
+            f"{r['pattern']}.{r['mode']}"] = {"port": r["saturation"],
+                                              "reference": r["reference"]}
+    if problems:
+        raise AssertionError(f"Table V failed its checks: {problems}")
+    return {"config": config, "graphs_s": graphs_s, "topologies": tops,
+            "runs": rows, "table5": grid, "path_costs": shapes,
+            "path_costs_launches": state["table5_launches"]}
 
 
 def scope_device_ms(events, scopes):
@@ -3728,7 +3951,8 @@ def phase_launch(torch, state):
     dry = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "one",
          "--arch", arch, "--shape", "train_4k", "--hbm-gb", repr(hbm / 1e9),
-         "--out", out_dir], env=env, stdout=subprocess.PIPE,
+         "--batch", str(LAUNCH["train_batch"]),
+         "--microbatches", str(LAUNCH["train_batch"]), "--out", out_dir], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
         out = {"card": torch.cuda.get_device_name(0),
@@ -3764,21 +3988,25 @@ def phase_launch(torch, state):
         del dec, logits
         torch.cuda.empty_cache()
 
-        # train_4k: one whole step at the plan's microbatching
+        # train_4k: one step at the plan's microbatch size, over
+        # LAUNCH["train_batch"] of its sequences
         reset_flash_counts(ops)
-        tr = dryrun.card_step(arch, "train_4k")
+        nb = LAUNCH["train_batch"]
+        tr = dryrun.card_step(arch, "train_4k", batch=nb,
+                              extra={"num_microbatches": nb})
         metrics = tr.pop("out")[1]
         mb = tr["plan"]["num_microbatches"]
         layers = 24
         want = {"sm90": 2 * layers * mb, "simt": 0, "bwd": 0,
                 "bwd_sm90": layers * mb}
         loss = float(metrics["loss"])
-        tokens = 256 * 4096
+        tokens = nb * 4096
         bound = roofline_terms(tr["cost"]["dot_flops"],
                                tr["cost"]["dot_bytes_flash"], 0.0, 1,
                                tr["model_flops"], H100_SXM)
         out["train_4k"] = t4 = {
-            "plan": tr["plan"], "microbatches": mb, "tokens": tokens,
+            "plan": tr["plan"], "microbatches": mb, "batch": nb,
+            "cell_batch": 256, "tokens": tokens,
             "wall_s": tr["wall_s"], "tokens_per_s": tokens / tr["wall_s"],
             "wall_note": "one step under launch.cost's trace",
             "loss": loss, "loss_finite": check(np.isfinite(loss),
@@ -4121,6 +4349,7 @@ def main():
     phases = [("kernels", phase_kernels, (torch, state)),
               ("parity", phase_parity, (torch,)),
               ("main_path", phase_main_path, (torch, state)),
+              ("table5", phase_table5, (torch, state)),
               ("certified", phase_certified, (torch, state)),
               ("packet", phase_packet, (torch, state)),
               ("analysis", phase_analysis, (torch, state)),
@@ -4178,13 +4407,15 @@ def main():
             k["launches_by_path"] = state.get(
                 "flash_bwd_sm90_launches_by_path")
         if k["name"] == "path_costs":
-            # the main path's count is `launches`; the certified path's
-            # and the scale tier's beside it
+            # the main path's count is `launches`; the certified path's,
+            # the scale tier's and Table V's beside it
             k["launches_certified"] = state.get("certified_launches", 0)
             k["launches_certified_by_dtype"] = state.get(
                 "certified_launches_by_dtype")
             k["launches_scale"] = state.get("scale_launches", 0)
             k["scale_shapes"] = state.get("path_costs_scale_shapes")
+            k["launches_table5"] = state.get("table5_launches", 0)
+            k["table5_shapes"] = state.get("path_costs_table5_shapes")
     smoke.record["kernels"] = kernels
     smi = nvidia_smi()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

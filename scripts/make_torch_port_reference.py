@@ -63,10 +63,30 @@ for bit the host one by the reference's own tests
 engine.  About 15 minutes of JAX on the CPU.  Writes
 `tests/fixtures/torch_port_scale_reference.json`.
 
+With `--table5` it records the paper's Table V comparison that the smoke
+script's `table5` phase holds the port against: `benchmarks/
+bench_fig8_saturation.py`'s `run()` grid on Slim Fly, the two Dragonflies,
+Jellyfish and the fat tree of `paper_table5_configs(seed=0)` (1058, 876,
+978, 993 routers and 972 switches; PolarFly's row is the PF(31) fixture):
+`uniform` and `random_perm` traffic at seed 0, p = max(2, radix // 2)
+endpoints a router (on the fat tree only on its leaf switches), modes
+`min`, `ugal` and `ugal_pf` (the fat tree `ecmp` alone) with
+`k_candidates=10`, `saturation_throughput(tol=0.01, engine="batched")` at
+250 Frank-Wolfe iterations for the oblivious modes and 1500 for the
+adaptive ones.  Each topology holds the sha256 of its routing tables, each
+run the saturation, the [F, K, L] shape, the link count and the sha256 of
+its pattern's and FlowPaths' arrays (`chip_smoke.py`'s `flow_hashes`);
+`TABLE5` here is the one source of the grid, which the phase reads back
+from the fixture's `config`.  About 20 minutes of JAX on the CPU.  Writes
+`tests/fixtures/torch_port_table5_reference.json`; then
+`scripts/table5_sensitivity.py --write` adds each random_perm adaptive
+run's ±1-ulp band, which the phase's bar widens by.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --certified
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --packet
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --scale
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --table5
 """
 import argparse
 import dataclasses
@@ -84,9 +104,11 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from chip_smoke import flow_hashes, sweep_dests  # noqa: E402
+from chip_smoke import (flow_hashes, routing_hashes,  # noqa: E402
+                        sweep_dests, table5_traffic)
 
 from repro.core.polarfly import build_polarfly  # noqa: E402
+from repro.core.topologies import paper_table5_configs  # noqa: E402
 from repro.core.routing import (build_blocked_routing,  # noqa: E402
                                 build_routing, destination_blocks)
 from repro.simulation import (BurstSchedule,  # noqa: E402
@@ -134,6 +156,18 @@ SCALE = {
 }
 SCALE_OUT = os.path.join(ROOT, "tests", "fixtures",
                          "torch_port_scale_reference.json")
+# Table V: fig8's run() on the five competitors at the paper's sizes
+TABLE5 = {"seed": 0, "topologies": ["SF", "DF1", "DF2", "JF", "FT"],
+          "patterns": ["uniform", "random_perm"],
+          "modes": {"SF": ["min", "ugal", "ugal_pf"],
+                    "DF1": ["min", "ugal", "ugal_pf"],
+                    "DF2": ["min", "ugal", "ugal_pf"],
+                    "JF": ["min", "ugal", "ugal_pf"], "FT": ["ecmp"]},
+          "k_candidates": 10, "tol": 0.01,
+          "engine": "batched",
+          "iters": {"min": 250, "ecmp": 250, "ugal": 1500, "ugal_pf": 1500}}
+TABLE5_OUT = os.path.join(ROOT, "tests", "fixtures",
+                          "torch_port_table5_reference.json")
 
 
 def write(path, doc):
@@ -335,6 +369,50 @@ def scale():
         "config": SCALE, "points": points})
 
 
+def table5():
+    c = TABLE5
+    graphs = paper_table5_configs(seed=c["seed"])
+    tops = {}
+    for name in c["topologies"]:
+        g = graphs[name]
+        t0 = time.perf_counter()
+        rt = build_routing(g)
+        p, hosts = table5_traffic(g)
+        top = {"routers": g.n, "radix": g.params["radix"], "p": p,
+               "hosts": g.n if hosts is None else len(hosts),
+               "diameter": int(rt.diameter),
+               "routing_sha256": routing_hashes(rt),
+               "cpu_routing_s": round(time.perf_counter() - t0, 1),
+               "runs": []}
+        for pattern in c["patterns"]:
+            pat = make_pattern(pattern, rt, p=p, hosts=hosts, seed=c["seed"])
+            for mode in c["modes"][name]:
+                t0 = time.perf_counter()
+                fp = build_flow_paths(rt, pat, mode,
+                                      k_candidates=c["k_candidates"],
+                                      seed=c["seed"])
+                t1 = time.perf_counter()
+                sat = saturation_throughput(fp, tol=c["tol"],
+                                            iters=c["iters"][mode],
+                                            engine=c["engine"])
+                f, k, l = fp.edges.shape
+                top["runs"].append({
+                    "pattern": pattern, "mode": mode,
+                    "iters": c["iters"][mode], "saturation": float(sat),
+                    "flows": f, "candidates": k, "path_len": l,
+                    "num_links": fp.num_links, "sha256": flow_hashes(fp),
+                    "cpu_paths_s": round(t1 - t0, 1),
+                    "cpu_wall_s": round(time.perf_counter() - t1, 1)})
+                print(json.dumps({"topology": name, **top["runs"][-1]}),
+                      flush=True)
+        tops[name] = top
+    write(TABLE5_OUT, {
+        "source": "repro (JAX package), batched engine, CPU",
+        "script": "scripts/make_torch_port_reference.py --table5",
+        "jax": jax.__version__, "numpy": np.__version__,
+        "config": TABLE5, "topologies": tops})
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--certified", action="store_true",
@@ -343,7 +421,12 @@ def main():
                     help="record the packet engine's runs instead")
     ap.add_argument("--scale", action="store_true",
                     help="record the PF(79) / PF(157) scale tier instead")
+    ap.add_argument("--table5", action="store_true",
+                    help="record the Table V competitors' saturations "
+                         "instead")
     args = ap.parse_args()
+    if args.table5:
+        return table5()
     if args.scale:
         return scale()
     if args.certified:

@@ -471,8 +471,9 @@ def _ep_models(world, dev, cfg):
 
 
 def _ep_tokens(cfg, c, dev):
-    """A warm-up batch and the compared one, [B, S] from seed 0."""
-    gen = torch.Generator(device=dev).manual_seed(0)
+    """A warm-up batch and the compared one, [B, S] from `c["seed"]`
+    (default 0)."""
+    gen = torch.Generator(device=dev).manual_seed(c.get("seed", 0))
     return [torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
                           generator=gen, device=dev) for _ in range(2)]
 

@@ -280,19 +280,22 @@ def _key(x):
     raise _Uncacheable
 
 
-def _model_flops(cfg, plan: CellPlan, shape_name: str) -> float:
+def _model_flops(cfg, plan: CellPlan, shape_name: str,
+                 batch: Optional[int] = None) -> float:
     sh = SHAPES[shape_name]
-    tokens = sh["batch"] * (sh["seq"] if plan.kind != "decode" else 1)
+    tokens = (batch or sh["batch"]) * (sh["seq"] if plan.kind != "decode"
+                                       else 1)
     return (6.0 if plan.kind == "train" else 2.0) * \
         active_param_count(cfg) * tokens
 
 
 def trace_cell(arch: str, shape_name: str, mesh_name: str, hbm: float,
                extra: Optional[dict] = None, memory=None,
-               collectives: bool = False):
+               collectives: bool = False, batch: Optional[int] = None):
     """Trace one cell's step on a fake world of `mesh_name`'s size:
     (plan, `launch.cost.CostMode`, `memdebug.MemoryTrace`, seconds,
-    remat run).  `memory` is the trace to fill (default: a new one)."""
+    remat run).  `memory` is the trace to fill (default: a new one);
+    `batch` in place of the shape's global batch."""
     from .cost import CostMode
     from .memdebug import MemoryTrace
 
@@ -302,7 +305,7 @@ def trace_cell(arch: str, shape_name: str, mesh_name: str, hbm: float,
     mesh = None if mesh_name == "one" else \
         make_production_mesh(multi_pod=mesh_name == "multipod")
     call, given, remat = _cell_call(cfg, plan, shape_name, mesh,
-                                    torch.device("meta"))
+                                    torch.device("meta"), batch=batch)
     memory = memory if memory is not None else MemoryTrace()
     memory.track(given)
     t0 = time.time()
@@ -315,16 +318,19 @@ def trace_cell(arch: str, shape_name: str, mesh_name: str, hbm: float,
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, hbm: float,
              extra: Optional[dict] = None,
-             link_gbps: float = LINK_GBPS) -> dict:
+             link_gbps: float = LINK_GBPS,
+             batch: Optional[int] = None) -> dict:
     cfg = get_config(arch)
-    out = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False}
+    out = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False,
+           "batch": batch or SHAPES[shape_name]["batch"]}
     ok, reason = cell_supported(cfg, shape_name)
     if not ok:
         out.update(skipped=True, skip_reason=reason)
         return out
     n_dev = MESHES[mesh_name]
     plan, mode, memory, secs, remat = trace_cell(arch, shape_name,
-                                                 mesh_name, hbm, extra)
+                                                 mesh_name, hbm, extra,
+                                                 batch=batch)
     c = mode.cost
     out["plan"] = _plan_dict(plan)
     out["remat_run"] = remat
@@ -337,7 +343,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, hbm: float,
         "est_bytes_per_chip": est, "fits_hbm_estimate": bool(est < hbm),
         "attention_scores": "in no figure: attention traced through the "
                             "flash kernels' shape functions (Q, K, V, O)"}
-    model_flops = _model_flops(cfg, plan, shape_name)
+    model_flops = _model_flops(cfg, plan, shape_name, batch)
     out["params_total"] = _param_count(cfg)
     out["params_active"] = active_param_count(cfg)
     out["model_flops"] = model_flops
@@ -399,7 +405,7 @@ def card_step(arch: str, shape_name: str, extra: Optional[dict] = None,
            "hbm_bytes": hbm,
            "launches": {k: ops.LAUNCHES_BY_KERNEL[k] - before[k]
                         for k in before},
-           "model_flops": _model_flops(cfg, plan, shape_name)}
+           "model_flops": _model_flops(cfg, plan, shape_name, batch)}
     if not memory_history:
         c = mode.cost
         res["cost"] = dict(c.summary(), kernel_calls=dict(c.kernel_calls))
@@ -422,6 +428,10 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=RESULTS_DIR)
     ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences a step in place of the shape's global "
+                         "batch (with --microbatches, fewer of the plan's "
+                         "microbatches)")
     ap.add_argument("--seq-parallel", dest="sp", default=None,
                     choices=["on", "off"])
     ap.add_argument("--profile", default=None,
@@ -471,7 +481,8 @@ def main(argv=None):
                 t0 = time.time()
                 try:
                     res = run_cell(arch, shape, mesh_name, hbm,
-                                   extra or None, args.link_gbps)
+                                   extra or None, args.link_gbps,
+                                   batch=args.batch)
                 except Exception as e:  # noqa: BLE001
                     res = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "ok": False, "error": f"{type(e).__name__}: {e}",

@@ -291,7 +291,8 @@ def _decode_attention(q, k, v, slot_pos, cfg: ModelConfig, pos: int,
     each rank's share of the weighted values (reduced by sum).  DTensor
     is not left to run these products itself: torch 2.11's refuses to
     flatten the batched product's (batch, heads) dims when both are
-    sharded, as on the card's (1, 1) mesh."""
+    sharded, as on a (2, 2) mesh (on a (1, 1) mesh both stay replicated,
+    `parallel.sharding.placements`)."""
     if not is_dtensor(q):
         return _decode_core(q, k, v, slot_pos, cfg, pos, local, dtype)
     from torch.distributed.tensor import Partial, Replicate, Shard

@@ -218,10 +218,16 @@ def placements(spec: Sequence[MeshAxes], mesh) -> Tuple[Any, ...]:
     first major, as a spec entry ``("data", "model")`` does; an entry whose
     axes are not in mesh order (``("model", "data")``) has no placement
     and raises ValueError, and so does an axis the mesh lacks or one named
-    twice."""
+    twice.
+
+    A mesh dim of size 1 stays ``Replicate()`` whatever the spec names
+    there: its one shard is the whole dim, so the local data is the same,
+    and DTensor refuses to view away a dim of 1 sharded over it (a batch of
+    one on a ("data" = 1, ...) mesh)."""
     from torch.distributed.tensor import Replicate, Shard
 
-    names = list(mesh_axis_sizes(mesh))
+    sizes = mesh_axis_sizes(mesh)
+    names = list(sizes)
     out: list = [Replicate()] * len(names)
     seen = set()
     for i, entry in enumerate(spec):
@@ -237,7 +243,8 @@ def placements(spec: Sequence[MeshAxes], mesh) -> Tuple[Any, ...]:
                              f"in the mesh's order {names}; DTensor cannot "
                              f"place it")
         for j in order:
-            out[j] = Shard(i)
+            if sizes[names[j]] > 1:
+                out[j] = Shard(i)
     return tuple(out)
 
 

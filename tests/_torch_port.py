@@ -270,6 +270,53 @@ def tokens_for(cfg, b, s, seed=0):
                                                 dtype=np.int32)
 
 
+# Table V's competitors at small sizes, (constructor, arguments), the same
+# in both packages: SF(5), DF(4, 2) (adaptive paths of L = 6, as at the
+# paper's sizes), JF(60, 6, seed 0), FT(4, 3) (ecmp paths of L = 8)
+TABLE5_SMALL = {"SF": ("build_slimfly", (5,)),
+                "DF1": ("build_dragonfly", (4, 2)),
+                "JF": ("build_jellyfish", (60, 6, 0)),
+                "FT": ("build_fat_tree", (4, 3))}
+
+
+def smoke_module():
+    """chip_smoke.py as a module (loaded once)."""
+    import importlib.util
+    import os
+    import sys
+
+    if "chip_smoke" not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py")
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["chip_smoke"] = mod
+    return sys.modules["chip_smoke"]
+
+
+def long_path_inputs(name, mode):
+    """(delay [E + 1] float64 with the pad slot 0, eidx [F, K, L] int32)
+    on the port's flows of `TABLE5_SMALL[name]`'s uniform traffic in
+    `mode` (bench_fig8_saturation.py's, `chip_smoke.table5_traffic`), pads
+    remapped to E; the delays in [1, 5) from default_rng(L)."""
+    from repro_torch.core import topologies
+    from repro_torch.core.routing import build_routing
+    from repro_torch.simulation import build_flow_paths, make_pattern
+
+    fn, args = TABLE5_SMALL[name]
+    rt = build_routing(getattr(topologies, fn)(*args))
+    p, hosts = smoke_module().table5_traffic(rt.graph)
+    fp = build_flow_paths(rt, make_pattern("uniform", rt, p=p, hosts=hosts,
+                                           seed=0),
+                          mode, k_candidates=10, seed=0)
+    eidx = fp.device_arrays("cpu")[0].numpy()
+    rng = np.random.default_rng(eidx.shape[-1])
+    delay = np.concatenate([1.0 + rng.random(fp.num_links) * 4,
+                            np.zeros(1)])
+    return delay, eidx
+
+
 def _one_thread_per_worker():
     # pytest-xdist runs about one worker per core, and each would start one
     # PyTorch (OpenMP) intra-op thread per core: oversubscribed, spinning

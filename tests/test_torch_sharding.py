@@ -137,7 +137,18 @@ def test_spec_for_matches_reference(data):
     assert tuple(got) == tuple(want)
     places = sharding.placements(got, pm)
     assert len(places) == len(names)
-    assert sharding.spec_of_placements(places, pm, ndim) == got
+    # a mesh axis of size 1 stays replicated, so the round trip gives the
+    # spec without the size-1 axes, whose placements are the same
+    size = dict(zip(names, sizes))
+
+    def sharded(entry):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = tuple(a for a in axes if size[a] > 1)
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+
+    kept = sharding.P(*(sharded(e) for e in got))
+    assert sharding.spec_of_placements(places, pm, ndim) == kept
+    assert sharding.placements(kept, pm) == places
     multi = [i for i, e in enumerate(got) if isinstance(e, tuple)]
     if multi:
         bad = list(got)
@@ -159,6 +170,26 @@ def test_placements_layout():
     for bad in (P("expert"), P("data", "data")):
         with pytest.raises(ValueError, match="not in the mesh"):
             sharding.placements(bad, pm)
+
+
+def test_placements_leave_size_one_axes_replicated():
+    """A mesh dim of size 1 stays Replicate whatever the spec names there
+    (DTensor refuses to view away a dim of 1 sharded over it); its one
+    shard is the whole dim.  The order and name checks still hold."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    P = sharding.P
+    pm = sharding.MeshShape(("data", "model"), (1, 4))
+    assert sharding.placements(P("data", None, "model"), pm) \
+        == (Replicate(), Shard(2))
+    assert sharding.placements(P(("data", "model"), None), pm) \
+        == (Replicate(), Shard(0))
+    assert sharding.placements(P("data", None), sharding.MeshShape(
+        ("data", "model"), (1, 1))) == (Replicate(), Replicate())
+    with pytest.raises(ValueError, match="mesh's order"):
+        sharding.placements(P(("model", "data")), pm)
+    with pytest.raises(ValueError, match="not in the mesh"):
+        sharding.placements(P("data", "data"), pm)
 
 
 def test_init_stacked_draws_layer_after_layer():
