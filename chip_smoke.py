@@ -10,7 +10,11 @@ drives these paths through the public entry points: the paper's §VIII
 saturation path at PolarFly PF(31) (993 routers, p = 16 endpoints each,
 about 16k endpoints) and on the five other topologies of the paper's
 Table V at the paper's sizes (Slim Fly, two Dragonflies, Jellyfish, a fat
-tree), the flit-level packet engine (tail latency, bursts,
+tree), the paper's Fig. 9 (PF(31)'s adversarial permutations: saturation,
+latency, truncation error), Fig. 11 (PF(31) grown by quadric and
+non-quadric replication) and Fig. 14 (diameters under link failure up to
+5551 routers, a damaged PolarStar's saturation through the blocked
+routing stack), the flit-level packet engine (tail latency, bursts,
 a link-failure transient) at PF(31), the structural-analysis path (the
 §IV-D routing table, the §IX diameters under link failure, the blocked
 routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
@@ -106,6 +110,49 @@ development run that then fails for the kernels it did not launch):
              `embedding_bag`, timed beside its bytes bound.  The kernel
              line's path_costs entry takes `launches_table5` and
              `table5_shapes`
+  figures    the paper's remaining fluid figures, the grid read from
+             tests/fixtures/torch_port_figures_reference.json's `config`
+             and every solve on the card.  Fig. 9
+             (bench_fig9_adaptive.py) at PF(31), p = 16, seed 0,
+             k_candidates 10, tol 0.01, 250 / 1500 steps: perm1hop,
+             perm2hop and tornado under min, ugal and ugal_pf, each run's
+             saturation, its `latency_curve` mean latency at the
+             reference's `fig9_load` and, adaptive, its
+             `truncation_error` at the reference's saturation; random_perm
+             the latency and truncation rows alone (main_path holds its
+             saturations).  Fig. 11 (bench_fig11_expansion.py): PF(31)
+             and `expand(layout, 2 | 4, "quadric" | "nonquadric")`, each
+             routed by `build_routing(g)` alone (the base with its
+             PolarFly), uniform p = 16, ugal_pf, k_candidates 8, tol
+             0.02, 1500 steps (the non-quadric graphs have diameter 3:
+             paths of L = 6 through the generic kernel).  Fig. 14
+             (bench_fig14_resilience.py): diameter and ASPL of PF(13),
+             SF(9), JF(183, 14), DF(6, 3) at 0.05 / 0.2 / 0.4 / 0.55 and
+             of PS(9, 61), JF(5551, 40) at 0.05 / 0.2 links removed in
+             `resilience_sweep`'s order, seed 1, on the device BFS; and
+             `_run_large_fluid`'s point: PS(9, 61) less default_rng(1)'s
+             5 % of its links, `build_blocked_routing` on the device BFS
+             (diameter 4), 512 host routers, p = 20, min, tol 0.02.
+             Bars: graphs, routing tables, patterns and FlowPaths equal
+             to the fixture's sha256; oblivious saturations equal;
+             adaptive ones above 0, within 0.05 and within one bisection
+             step of the band the reference's runs span with the demand
+             moved up to 2 ulps each way (Fig. 11: 1), `table5_bar`;
+             latencies within LATENCY_REL (1e-3) relative of theirs or
+             of that band; truncation gaps finite, >= 0 and in their
+             band over the one-ulp moves widened each way by the
+             fixture's `truncation_factor` (scripts/table5_sensitivity.py
+             --figures); diameters and
+             ASPLs equal; path-cost launches iters + the probes'
+             schedule an adaptive saturation, iters + 1 an adaptive
+             latency point (1 an oblivious one), iters a truncation gap,
+             0 an oblivious saturation.  Each run's [F, K, L], launch
+             plan, link-load route (`loads`) and stage seconds; then
+             path_costs at fig9's [993, 11, 4] and the non-quadric x4
+             graph's [114,329, 9, 6] against its plain version (bit for
+             bit) and `embedding_bag`, timed beside its bytes bound.  The
+             kernel line's path_costs entry takes `launches_figures` and
+             `figures_shapes`
   certified  the same PF(31) flows through the certified engine
              (`certify=True`, tol 0.01, the default budget): random_perm
              ugal and ugal_pf and uniform ugal (the kernel at full width)
@@ -119,10 +166,10 @@ development run that then fails for the kernels it did not launch):
              + 1) + 33 * iters / 32 in each; one float64 certified
              `evaluate_load` on uniform ugal at half its saturation,
              512 steps (path_costs_f64 launches only, 2 + 33 * iters /
-             32 of them).  Tracing: the random_perm
-             ugal_pf certified saturation again with trace=True,
-             bit-identical and with trace.final_gap == cert.gap (ugal_pf:
-             the shortest solve of the three); the main path's
+             32 of them).  Tracing: the random_perm ugal_pf certified
+             saturation twice at `CERT_TRACE_ITERS` steps a solve (a depth
+             cut), untraced and with trace=True, bit-identical and with
+             trace.final_gap == cert.gap; the main path's
              random_perm ugal uncertified saturation with trace=True,
              bit-identical to main_path's value, its solve run under
              torch.cuda.set_sync_debug_mode("error") (it reads nothing
@@ -209,8 +256,8 @@ development run that then fails for the kernels it did not launch):
              layer, all of them the sm90 tensor-core kernel: 42) and
              finite logits, and a torch.profiler breakdown of one more
              prefill; `launch.serve.generate` answering 4
-             greedy requests (prompt 16, 32 new tokens) after one warm-up
-             run, three timed runs and their median tokens/s (a smoke
+             greedy requests (prompt 16, 16 new tokens) after one warm-up
+             run, two timed runs and their median tokens/s (a smoke
              reading, not a serve rate), and one profiled decode step;
              then float32 at full width with 4 layers (two local/global
              pairs), B = 2, 48 tokens, TF32 off: step-by-step
@@ -220,28 +267,34 @@ development run that then fails for the kernels it did not launch):
              the same parameters, both at rtol = atol = 2e-3
              (tests/test_models.py's decode-vs-forward bar)
   moe        the same three steps (`drive_lm`) for deepseek-moe-16b (dense
-             layer0 + 27 MoE layers, 64 experts top-6, 2 shared) and
-             qwen2-moe-a2.7b (24 MoE layers, 60 experts padded to 64,
-             top-4, QKV bias), one after the other, every layer, expert
-             and vocabulary entry (32.8 and 30.4 GB of bf16 parameters,
-             each freed before the next is built): the prefill on B = 1,
-             S = 4096 (the capacity buffers grow with S) with one sm90
-             launch an attention layer (28, 24) and a torch.profiler
+             layer0 + MoE layers, 64 experts top-6, 2 shared) and
+             qwen2-moe-a2.7b (MoE layers, 60 experts padded to 64, top-4,
+             QKV bias), one after the other, every expert and vocabulary
+             entry, each depth cut to a quarter of its layers
+             (`DEPTH_CUT`: 7 of 28, 6 of 24; the sharded phase runs
+             deepseek-moe-16b's prefill at all 28), each model freed
+             before the next is built: the prefill on B = 1, S = 4096 (the
+             capacity buffers grow with S) with one sm90 launch an
+             attention layer (7, 6) and a torch.profiler
              breakdown (attention, the router, dispatch + combine, the
              expert GEMMs); the 4-request serve run, dropless; float32
-             at 4 layers with the capacity factor at the padded expert
+             at 2 layers (`CONSISTENCY_LAYERS`: deepseek's layer0 and one
+             MoE layer) with the capacity factor at the padded expert
              count, so the forward drops nothing either
   hybrid     the same for recurrentgemma-9b (38 layers: 12 (rec, rec,
              attn) groups + 2 recurrent ones; windowed MQA, 16 q heads on
-             one kv head of 256, window 2048; 17.2 GB): 12 sm90 launches
-             a prefill, the RG-LRU scan's device time in the breakdown;
+             one kv head of 256, window 2048; 17.2 GB), depth cut to 19
+             of them (`DEPTH_CUT`: 6 groups + 1 recurrent layer): 6 sm90
+             launches a prefill, the RG-LRU scan's device time in the
+             breakdown;
              float32 at 5 layers (one group + 2 tail layers, 1 CUDA-core
              launch)
-  ssm        the same for falcon-mamba-7b (64 layers, d_model 4096, d_inner
-             8192, state 16, dt_rank 256, vocab 65024; 14.0 GB): the
-             S = 4096 prefill is 16 scan chunks of 256 and launches no flash
-             kernel; the selective scan's share of the prefill's device
-             time in the breakdown; float32 at 4 layers
+  ssm        the same for falcon-mamba-7b at its published widths (d_model
+             4096, d_inner 8192, state 16, dt_rank 256, vocab 65024),
+             depth cut to 16 of its 64 layers (`DEPTH_CUT`): the
+             S = 4096 prefill is 16 scan chunks of 256 a layer and
+             launches no flash kernel; the selective scan's share of the
+             prefill's device time in the breakdown; float32 at 4 layers
   encdec     the same for whisper-base (6 + 6 layers, d_model 512, 8 heads
              of 64, 1500 frames; no depth cut anywhere): random bf16 frames
              (the model's dtype, so the encoder keeps the sm90 route; the
@@ -338,10 +391,10 @@ development run that then fails for the kernels it did not launch):
              plan's estimate beside `max_memory_allocated` and the step's
              wall; its `train_4k` cell (256 sequences of 4096) at the
              plan's microbatch size (the planner's candidates stop at 32,
-             so one sequence a microbatch), cut to 64 of the sequences
-             (`LAUNCH["train_batch"]`, 64 microbatches, 262,144 tokens):
-             one step under `launch.cost`'s trace, 2 * 24 * 64 sm90 and
-             24 * 64 tensor-core backward launches, the estimate beside
+             so one sequence a microbatch), cut to 32 of the sequences
+             (`LAUNCH["train_batch"]`, 32 microbatches, 131,072 tokens):
+             one step under `launch.cost`'s trace, 2 * 24 * 32 sm90 and
+             24 * 32 tensor-core backward launches, the estimate beside
              the peak, the step's per-device FLOPs equal to the dry run's
              for the same cut cell on a world of one (`dryrun --mesh one
              --batch 64 --microbatches 64`, meta tensors on the CPU, in a
@@ -466,6 +519,11 @@ SCALE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
 # and the JAX package's results
 TABLE5_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                               "torch_port_table5_reference.json")
+# the paper's remaining fluid figures: Fig. 9's adaptive permutations,
+# Fig. 11's incremental expansion, Fig. 14's failure sweeps and its
+# PS(9, 61) throughput point; its `config` and the JAX package's results
+FIGURES_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                               "torch_port_figures_reference.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # Issue rates in lane-instructions a second, 132 SMs x lanes x 1.98 GHz.
@@ -516,14 +574,18 @@ FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 FLASH_BF16_BAR = {"atol": 1e-5, "rtol": 2.0 ** -7}
 GEMMA = "gemma2-9b"
 PREFILL_S = 8192
-SERVE = {"batch": 4, "prompt": 16, "tokens": 32, "runs": 3}
+# serve: 4 requests of 16 prompt tokens, 16 new ones each, one warm-up
+# run and two timed ones (cut from 32 tokens and three runs for the
+# script's time limit)
+SERVE = {"batch": 4, "prompt": 16, "tokens": 16, "runs": 2}
 # fp32 consistency at full width: two local/global pairs, B = 2, 48 tokens
 CONSISTENCY = {"layers": 4, "batch": 2, "seq": 48, "tol": 2e-3}
 # the MoE family and the hybrid: their prefill at S = 4096 (the capacity
 # buffers grow with S, and three models share the script's time limit);
 # float32 consistency at full width and these depths: deepseek's layer0 +
-# 3 MoE layers, qwen2-moe's 4 (the padded-expert mask, the QKV bias),
-# recurrentgemma's one (rec, rec, attn) group + 2 tail layers
+# 1 MoE layer, qwen2-moe's 2 (the padded-expert mask, the QKV bias; both
+# cut from 4 for the script's time limit, the CPU's forward ~11 s each at
+# 4), recurrentgemma's one (rec, rec, attn) group + 2 tail layers
 MOE = ["deepseek-moe-16b", "qwen2-moe-a2.7b"]
 HYBRID = "recurrentgemma-9b"
 NEW_PREFILL_S = 4096
@@ -532,9 +594,20 @@ NEW_PREFILL_S = 4096
 # frames, its published 448-token text context, every layer at every step)
 SSM = "falcon-mamba-7b"
 ENCDEC = "whisper-base"
+# depth cuts of the bf16 prefill and serve runs, to keep the whole script
+# inside its time: falcon-mamba-7b at 16 of its 64 layers, the MoE pair at
+# a quarter of theirs (every layer past deepseek's dense layer0 alike, so
+# the shares and the launch counts a layer stand; the sharded phase runs
+# deepseek-moe-16b's prefill uncut), recurrentgemma-9b at 19 of its 38
+# (six (rec, rec, attn) groups and one rec layer)
+DEPTH_CUT = {SSM: 16, "deepseek-moe-16b": 7, "qwen2-moe-a2.7b": 6,
+             HYBRID: 19}
+# the certified phase's traced saturation and its untraced twin: each
+# solve's step budget (a depth cut; the default is 2016)
+CERT_TRACE_ITERS = 256
 WHISPER_TEXT_S = 448
-CONSISTENCY_LAYERS = {GEMMA: CONSISTENCY["layers"], "deepseek-moe-16b": 4,
-                      "qwen2-moe-a2.7b": 4, HYBRID: 5, SSM: 4, ENCDEC: 6}
+CONSISTENCY_LAYERS = {GEMMA: CONSISTENCY["layers"], "deepseek-moe-16b": 2,
+                      "qwen2-moe-a2.7b": 2, HYBRID: 5, SSM: 4, ENCDEC: 6}
 # the training path: qwen2-0.5b (the reference CLI's default --arch and
 # tests/test_train.py's config) at its published widths, bf16 with remat
 # "full", B = 4, S = 2048, one warm-up step and ten more on one fixed batch;
@@ -577,10 +650,10 @@ LAUNCH = {"arch": "qwen2-0.5b", "gemm_n": 8192, "copy_bytes": 4 << 30,
                           "layers": 2, "batch": 4, "max_seq": 64,
                           "steps": 8},
           "memdebug_batch": 8, "top": 10,
-          # the train_4k step at 64 of the cell's 256 sequences, one a
-          # microbatch as the plan has them: a quarter of its microbatches
+          # the train_4k step at 32 of the cell's 256 sequences, one a
+          # microbatch as the plan has them: an eighth of its microbatches
           # (depth cut for the script's time limit; ~137 s at 256)
-          "train_batch": 64}
+          "train_batch": 32}
 # the cards phase (`launch.cards.CARD_PARTS`): the deadlines of its two
 # worlds; a rank still running then is killed and the phase fails
 CARDS = {"deadline_s": 600, "restore_deadline_s": 240}
@@ -1634,6 +1707,7 @@ def phase_certified(torch, state):
                "kind": res.cert.kind, "dtype": res.cert.dtype,
                "launches": launches, "launches_expected": want,
                "trace": "trace" in kw,
+               "cert_iters": kw.get("cert_iters"),
                "ok": check(launches == want and np.isfinite(res.value)
                            and res.sat_lo <= res.value + 1e-9,
                            f"{pattern} {mode} launches or bracket")}
@@ -1698,10 +1772,15 @@ def phase_certified(torch, state):
                              "float64 evaluate_load")})
     emit({"phase": "certified.run", **rows[-1]})
 
-    # trace=True: a certified saturation again, bit-identical (ugal_pf's,
-    # the shortest of the three: ~17 s against ugal's ~45)
-    res, row = certified("random_perm", "ugal_pf", trace=True)
-    plain = results["random_perm", "ugal_pf"]
+    # trace=True: a certified saturation twice, untraced and traced, bit
+    # identical (ugal_pf's at CERT_TRACE_ITERS a solve, a depth cut: the
+    # default budget took 25-28 s a run)
+    plain, row = certified("random_perm", "ugal_pf",
+                           cert_iters=CERT_TRACE_ITERS)
+    rows.append(row)
+    emit({"phase": "certified.run", **row})
+    res, row = certified("random_perm", "ugal_pf", trace=True,
+                         cert_iters=CERT_TRACE_ITERS)
     same = (res.value, res.sat_lo, res.sat_hi, res.cert) == (
         plain.value, plain.sat_lo, plain.sat_hi, plain.cert)
     row.update({"bit_identical": check(same, "traced certified result"),
@@ -2111,6 +2190,28 @@ def routing_hashes(rt):
     return {"dist": sha(rt.dist), "next_hop": sha(rt.next_hop)}
 
 
+def graph_hash(g):
+    """sha256 of a graph's sorted undirected edge list."""
+    return sha(g.edge_list)
+
+
+def figure_graph(builder, args, topologies, build_polarfly):
+    """The graph of a Fig. 14 entry (`[builder, arguments]`), built by the
+    package whose `topologies` module and `build_polarfly` are passed."""
+    if builder == "build_polarfly":
+        return build_polarfly(*args).graph
+    return getattr(topologies, builder)(*args)
+
+
+LATENCY_REL = 1e-3  # a figure's latency point against the reference's
+
+
+def fig9_load(sat):
+    """bench_fig9_adaptive.py's latency point: 0.9 of the saturation, or
+    of 0.02 where the saturation is below it."""
+    return 0.9 * max(sat, 0.02)
+
+
 def table5_traffic(g):
     """bench_fig8_saturation.py's traffic on Table V topology `g`: (p,
     hosts), p = max(2, radix // 2) endpoints a router; on a graph with leaf
@@ -2123,15 +2224,95 @@ def table5_traffic(g):
     return p, hosts
 
 
-def table5_bar(run, step):
-    """(lo, hi) that a Table V adaptive saturation must lie in, besides
-    being above 0: the reference's `run["saturation"]`, or the least and
-    greatest of it and its runs with the demand one ulp up and down
-    (`run["ulp_band"]`, scripts/table5_sensitivity.py) where measured,
-    widened by one bisection `step` (the adaptive iterate may end a step
-    away on another device)."""
-    lo, hi = run.get("ulp_band", [run["saturation"]] * 2)
+def table5_bar(run, step, band=None):
+    """(lo, hi) that an adaptive saturation must lie in, besides being
+    above 0: the reference's `run["saturation"]`, or the least and greatest
+    of it and its runs with the demand moved by whole ulps (`band`, or
+    Table V's `run["ulp_band"]`, scripts/table5_sensitivity.py) where
+    measured, widened by one bisection `step` (the adaptive iterate may end
+    a step away on another device)."""
+    lo, hi = band or run.get("ulp_band", [run["saturation"]] * 2)
     return lo - step, hi + step
+
+
+def checker(problems):
+    """check(ok, what): `what` goes into `problems` when `ok` is false;
+    returns bool(ok)."""
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+        return bool(ok)
+    return check
+
+
+def held_paths(torch, check, rt, pat, mode, c, want, label):
+    """(FlowPaths, row): `build_flow_paths` of `pat` under `mode` at `c`'s
+    k_candidates and seed, its seconds and [F, K, L], its pattern and path
+    arrays held by their hashes and its shape against the fixture row
+    `want`."""
+    from repro_torch.simulation import build_flow_paths
+
+    fp, paths_s = synced(torch, lambda: build_flow_paths(
+        rt, pat, mode, k_candidates=c["k_candidates"], seed=c["seed"]))
+    f, k, l = fp.edges.shape
+    return fp, {
+        "flows": f, "candidates": k, "path_len": l,
+        "num_links": fp.num_links, "paths_s": paths_s,
+        "hashes_equal": check(
+            flow_hashes(fp) == want["sha256"]
+            and [f, k, l, fp.num_links] == [want["flows"], want["candidates"],
+                                            want["path_len"],
+                                            want["num_links"]],
+            f"{label} FlowPaths hashes")}
+
+
+def loads_route(fp):
+    """How `fp`'s solves on the card sum link loads ("pad": a padded
+    per-link gather; "scatter": index_add_ past the pad table's entry cap)
+    and the path-cost kernel's row plan at its shape."""
+    from repro_torch.kernels.minplus import ops
+
+    eidx, loads_rep = fp.device_arrays("cuda")[:2]
+    f, k, l = eidx.shape
+    return {"loads": loads_rep[0],
+            "rows": ops._path_costs_plan(f * k, l, eidx.data_ptr())["rows"]}
+
+
+def held_saturation(torch, check, fp, tol, iters, engine, want, label,
+                    bar=None):
+    """`saturation_throughput` of `fp` on the card, held against the
+    reference's `want["saturation"]`: finite, in (0, 1], within 0.05 and
+    inside `bar` -- by default `table5_bar` for an adaptive mode, and
+    equal for an oblivious one, which has no iterate to drift -- with
+    `iters + sum(_probe_schedule)` path-cost launches adaptive and 0
+    oblivious.  Returns the row, with `loads_route`."""
+    import numpy as np
+
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.simulation import saturation_throughput
+    from repro_torch.simulation.fluid import _probe_schedule
+
+    route = loads_route(fp)
+    before = ops.LAUNCHES
+    sat, wall = synced(torch, lambda: saturation_throughput(
+        fp, tol=tol, iters=iters, engine=engine, device="cuda"))
+    launches = ops.LAUNCHES - before
+    ref = want["saturation"]
+    if fp.mode in ("ugal", "ugal_pf"):
+        probes = max(1, int(np.ceil(np.log2(1.0 / tol))))
+        want_l = iters + sum(_probe_schedule(iters, probes))
+        bar = bar or table5_bar(want, bisection_step(tol))
+    else:
+        want_l, bar = 0, bar or (ref, ref)
+    diff = abs(sat - ref)
+    return {**route, "saturation": sat, "reference": ref, "diff": diff,
+            "bar": list(bar), "wall_s": wall, "launches": launches,
+            "launches_expected": want_l,
+            "ok": check(np.isfinite(sat) and 0.0 < sat <= 1.0
+                        and diff <= 0.05 and bar[0] <= sat <= bar[1]
+                        and launches == want_l,
+                        f"{label} saturation {sat} (reference {ref}, bar "
+                        f"{bar}), launches {launches} (want {want_l})")}
 
 
 def kernel_path_costs_at(torch, label, fp, path_launches):
@@ -2205,11 +2386,8 @@ def phase_scale(torch, state):
                                           destination_blocks)
     from repro_torch.kernels.minplus import ops
     from repro_torch.parallel.blockwise import resolve_devices
-    from repro_torch.simulation import (build_flow_paths, make_pattern,
-                                        make_workload, packet_peak_bytes,
-                                        saturation_throughput,
-                                        simulate_packets)
-    from repro_torch.simulation.fluid import _probe_schedule
+    from repro_torch.simulation import (make_pattern, make_workload,
+                                        packet_peak_bytes, simulate_packets)
 
     with open(SCALE_FIXTURE) as fh:
         fixture = json.load(fh)
@@ -2220,45 +2398,17 @@ def phase_scale(torch, state):
         torch.empty(1, device=d)
         torch.cuda.synchronize(d)
     problems, out = [], {"cards": len(cards)}
+    check = checker(problems)
     paths_fp, path_launches = {}, {}
-
-    def check(ok, what):
-        if not ok:
-            problems.append(what)
-        return bool(ok)
 
     def paths(rt, key):
         c = config[key]
         pat, pattern_s = synced(torch, lambda: make_pattern(
             "uniform", rt, p=c["p"], seed=c["seed"],
             max_flows=c["max_flows"]))
-        fp, paths_s = synced(torch, lambda: build_flow_paths(
-            rt, pat, c["mode"], k_candidates=c["k_candidates"],
-            seed=c["seed"]))
-        f, k, l = fp.edges.shape
-        want = ref[key]
-        return fp, {"flows": f, "candidates": k, "path_len": l,
-                    "num_links": fp.num_links, "pattern_s": pattern_s,
-                    "paths_s": paths_s,
-                    "hashes_equal": check(
-                        flow_hashes(fp) == want["sha256"]
-                        and [f, k, l] == [want["flows"], want["candidates"],
-                                          want["path_len"]],
-                        f"{key} FlowPaths hashes")}
-
-    def saturation(fp, tol, iters):
-        fp.device_arrays("cuda")
-        before = ops.LAUNCHES
-        sat, wall = synced(torch, lambda: saturation_throughput(
-            fp, tol=tol, iters=iters, engine="batched", device="cuda"))
-        probes = max(1, int(np.ceil(np.log2(1.0 / tol))))
-        want = (iters + sum(_probe_schedule(iters, probes))
-                if fp.mode in ("ugal", "ugal_pf") else 0)
-        launches = ops.LAUNCHES - before
-        check(launches == want, f"{fp.mode} path-cost launches {launches} "
-                                f"!= {want}")
-        return sat, {"wall_s": wall, "launches": launches,
-                     "launches_expected": want}
+        fp, row = held_paths(torch, check, rt, pat, c["mode"], c, ref[key],
+                             key)
+        return fp, {"pattern_s": pattern_s, **row}
 
     ops.LAUNCHES = 0  # the scale path's count starts here
     # (a) PF(79) adaptive: fig10's scale tier, the n-source BFS on the card
@@ -2273,24 +2423,17 @@ def phase_scale(torch, state):
            "diameter_ok": check(rt79.diameter == 2, "pf79 diameter")}
     fp, prow = paths(rt79, key)
     row.update(prow)
-    sat, srow = saturation(fp, c["tol"], c["iters"])
-    sat10, srow10 = saturation(fp, c["tol"], c["fig10_iters"])
-    # within one bisection step: the adaptive iterate may end a step away
-    # on another device, and 0 (or any neighbour two steps off) fails
-    bar = bisection_step(c["tol"])
-    row.update({"saturation": sat, "reference": ref[key]["saturation"],
-                "bar": bar,
-                "saturation_ok": check(
-                    np.isfinite(sat)
-                    and abs(sat - ref[key]["saturation"]) <= bar,
-                    f"{key} saturation {sat}"),
-                **srow, f"saturation_{c['fig10_iters']}": sat10,
-                f"reference_{c['fig10_iters']}":
-                    ref[key]["saturation_fig10"],
-                f"wall_{c['fig10_iters']}_s": srow10["wall_s"],
-                f"launches_{c['fig10_iters']}": srow10["launches"]})
+    # within one bisection step of the reference's (`table5_bar`): the
+    # adaptive iterate may end a step away on another device
+    row.update(held_saturation(torch, check, fp, c["tol"], c["iters"],
+                               "batched", ref[key], key))
+    it10 = c["fig10_iters"]
+    row[f"at_{it10}_iters"] = held_saturation(
+        torch, check, fp, c["tol"], it10, "batched",
+        {"saturation": ref[key]["saturation_fig10"]}, f"{key} at {it10}")
     paths_fp[key] = fp
-    path_launches[key] = srow["launches"] + srow10["launches"]
+    path_launches[key] = (row["launches"]
+                          + row[f"at_{it10}_iters"]["launches"])
     out[key] = row
     emit({"phase": "scale.run", "point": key, **row})
 
@@ -2364,14 +2507,11 @@ def phase_scale(torch, state):
     row["routing_s"] = routing_s
     fp, prow = paths(rt, key)
     row.update(prow)
-    sat, srow = saturation(fp, c["tol"], c["iters"])
-    # oblivious: no iterate to drift, so held to the bit as the main
-    # path holds min
-    row.update({"saturation": sat, "reference": want["saturation"],
-                "saturation_ok": check(sat == want["saturation"],
-                                       f"{key} saturation {sat}"), **srow})
+    # oblivious: held to the bit, as the main path holds min
+    row.update(held_saturation(torch, check, fp, c["tol"], c["iters"],
+                               "batched", want, key))
     paths_fp[key] = fp
-    path_launches[key] = srow["launches"]
+    path_launches[key] = row["launches"]
     out[key] = row
     emit({"phase": "scale.run", "point": key, **row})
     state["scale_launches"] = ops.LAUNCHES  # the scale path's, read here
@@ -2398,36 +2538,24 @@ def phase_table5(torch, state):
     and FlowPaths by their hashes, oblivious saturations equal, adaptive
     ones above 0, within 0.05 and inside `table5_bar` (one bisection step
     about the reference's, or about its ±1-ulp band where measured),
-    path-cost
-    launches `iters + sum(_probe_schedule)` an
-    adaptive saturation and 0 an oblivious one.  PolarFly's row is
+    path-cost launches `iters + sum(_probe_schedule)` an adaptive
+    saturation and 0 an oblivious one (`held_saturation`).  PolarFly's row is
     main_path's PF(31) run beside its fixture, so the phase prints the
     whole Table V, port beside reference; which topology wins is not
     checked.  The path-cost count starts at 0 here and is read before the
     kernel is held and timed at each adaptive topology's uniform ugal_pf
     shape."""
-    import numpy as np
-
     from repro_torch.core.routing import build_routing
     from repro_torch.core.topologies import paper_table5_configs
     from repro_torch.kernels.minplus import ops
-    from repro_torch.simulation import (build_flow_paths, make_pattern,
-                                        saturation_throughput)
-    from repro_torch.simulation.fluid import _probe_schedule
+    from repro_torch.simulation import make_pattern
 
     with open(TABLE5_FIXTURE) as fh:
         fixture = json.load(fh)
     config, ref = fixture["config"], fixture["topologies"]
-    tol = config["tol"]
-    probes = max(1, int(np.ceil(np.log2(1.0 / tol))))
-    step = bisection_step(tol)
     problems, rows, tops = [], [], {}
+    check = checker(problems)
     timed_fp, shape_launches = {}, {}
-
-    def check(ok, what):
-        if not ok:
-            problems.append(what)
-        return bool(ok)
 
     graphs, graphs_s = synced(torch, lambda: paper_table5_configs(
         seed=config["seed"]))
@@ -2453,57 +2581,22 @@ def phase_table5(torch, state):
                 pattern, rt, p=p, hosts=hosts, seed=config["seed"]))
             for mode in config["modes"][name]:
                 r, it = runs[pattern, mode], config["iters"][mode]
-                fp, paths_s = synced(torch, lambda: build_flow_paths(
-                    rt, pat, mode, k_candidates=config["k_candidates"],
-                    seed=config["seed"]))
-                f, k, l = fp.edges.shape
-                hashes_ok = check(
-                    flow_hashes(fp) == r["sha256"]
-                    and [f, k, l, fp.num_links]
-                    == [r["flows"], r["candidates"], r["path_len"],
-                        r["num_links"]],
-                    f"{name} {pattern} {mode} FlowPaths hashes")
-                eidx, loads_rep = fp.device_arrays("cuda")[:2]
-                before = ops.LAUNCHES
-                sat, wall = synced(torch, lambda: saturation_throughput(
-                    fp, tol=tol, iters=it, engine=config["engine"],
-                    device="cuda"))
-                launches = ops.LAUNCHES - before
-                adaptive = mode in ("ugal", "ugal_pf")
-                want_l = (it + sum(_probe_schedule(it, probes))
-                          if adaptive else 0)
-                diff = abs(sat - r["saturation"])
-                lo, hi = (table5_bar(r, step) if adaptive
-                          else (r["saturation"],) * 2)
-                rows.append({
-                    "topology": name, "pattern": pattern, "mode": mode,
-                    "iters": it, "flows": f, "candidates": k,
-                    "path_len": l, "num_links": fp.num_links,
-                    "rows": ops._path_costs_plan(f * k, l,
-                                                 eidx.data_ptr())["rows"],
-                    # link loads: a padded per-link gather, or index_add_
-                    # past the pad table's entry cap
-                    "loads": loads_rep[0],
-                    "pattern_s": pattern_s, "paths_s": paths_s,
-                    "hashes_equal": hashes_ok, "saturation": sat,
-                    "reference": r["saturation"], "diff": diff,
-                    "bar": [lo, hi],
-                    "wall_s": wall, "launches": launches,
-                    "launches_expected": want_l,
-                    "ok": check(
-                        np.isfinite(sat) and 0.0 < sat <= 1.0
-                        and launches == want_l and lo <= sat <= hi
-                        and diff <= 0.05,
-                        f"{name} {pattern} {mode} saturation {sat} "
-                        f"(reference {r['saturation']}), launches "
-                        f"{launches} (want {want_l})")})
+                label = f"{name} {pattern} {mode}"
+                fp, row = held_paths(torch, check, rt, pat, mode, config, r,
+                                     label)
+                rows.append({"topology": name, "pattern": pattern,
+                             "mode": mode, "iters": it,
+                             "pattern_s": pattern_s, **row,
+                             **held_saturation(torch, check, fp,
+                                               config["tol"], it,
+                                               config["engine"], r, label)})
                 emit({"phase": "table5.run", **rows[-1]})
                 # the launches each [F, K, L] shape took (uniform ugal and
                 # ugal_pf share theirs)
-                shape = (name, f, k, l)
-                shape_launches[shape] = shape_launches.get(shape, 0) \
-                    + launches
-                if adaptive and (pattern, mode) == ("uniform", "ugal_pf"):
+                shape = (name, *fp.edges.shape)
+                shape_launches[shape] = (shape_launches.get(shape, 0)
+                                         + rows[-1]["launches"])
+                if (pattern, mode) == ("uniform", "ugal_pf"):
                     timed_fp[name] = fp
         tops[name] = top
         emit({"phase": "table5.topology", "topology": name, **top})
@@ -2532,6 +2625,261 @@ def phase_table5(torch, state):
     return {"config": config, "graphs_s": graphs_s, "topologies": tops,
             "runs": rows, "table5": grid, "path_costs": shapes,
             "path_costs_launches": state["table5_launches"]}
+
+
+def band(run, quantity, moves=None):
+    """[least, greatest] of the reference's `run[quantity]` and its runs
+    with the demand moved by up to `moves` whole ulps (every run, where
+    None), where scripts/table5_sensitivity.py --figures measured them."""
+    vals = [run[quantity]] + [
+        r[quantity] for k, r in run.get("ulp_runs", {}).items()
+        if quantity in r
+        and (moves is None or int(k.split("_")[1][:-3]) <= moves)]
+    return min(vals), max(vals)
+
+
+def figure_bars(run, step, factor):
+    """{quantity: (lo, hi)} that a Fig. 9 / Fig. 11 adaptive run's
+    readings must lie in: the saturation in its band widened by one
+    bisection `step` (`table5_bar`), the mean latency in its band widened
+    by LATENCY_REL, the truncation gap in its band over the one-ulp moves
+    widened by `factor` (the fixture's `truncation_factor`, the widest
+    spread of a gap under a one-ulp move) each way."""
+    bars = {"saturation": table5_bar(run, step, band(run, "saturation"))}
+    if "latency_load" in run:
+        lo, hi = band(run, "mean_latency")
+        bars["mean_latency"] = (lo * (1 - LATENCY_REL),
+                                hi * (1 + LATENCY_REL))
+        lo, hi = band(run, "truncation_error", moves=1)
+        bars["truncation_error"] = (lo / factor, hi * factor)
+    return bars
+
+
+def phase_figures(torch, state):
+    """The paper's remaining fluid figures on the card, every stage
+    through the port and every solve on the card, held against
+    tests/fixtures/torch_port_figures_reference.json (the JAX package's
+    run), whose `config` gives the grid (module docstring, ``figures``).
+    The path-cost count starts at 0 here and is read before the kernel is
+    held and timed at fig9's and the non-quadric x4 graph's shapes."""
+    import numpy as np
+
+    from repro_torch.core import topologies
+    from repro_torch.core.expansion import expand
+    from repro_torch.core.layout import build_layout
+    from repro_torch.core.metrics import diameter_and_aspl
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.core.routing import build_blocked_routing, build_routing
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.simulation import (latency_curve, make_pattern,
+                                        truncation_error)
+
+    with open(FIGURES_FIXTURE) as fh:
+        fixture = json.load(fh)
+    config = fixture["config"]
+    factor = fixture["truncation_factor"]
+    problems, out, timed_fp = [], {"truncation_factor": factor}, {}
+    check = checker(problems)
+
+    def inside(v, lo_hi):
+        return bool(np.isfinite(v) and lo_hi[0] <= v <= lo_hi[1])
+
+    def counted(fn):
+        """(fn(), wall seconds, path-cost launches it made)."""
+        before = ops.LAUNCHES
+        res, wall = synced(torch, fn)
+        return res, wall, ops.LAUNCHES - before
+
+    ops.LAUNCHES = 0  # the figures path's count starts here
+    # Fig. 9: PolarFly's adversarial permutations at PF(31)
+    c, ref = config["fig9"], fixture["fig9"]
+    step = bisection_step(c["tol"])
+    t = time.perf_counter()
+    pf = build_polarfly(c["q"])
+    rt = build_routing(pf.graph, pf)
+    setup_s = time.perf_counter() - t
+    fig9 = {"routers": pf.n, "routing_s": setup_s, "runs": [],
+            "routing_hashes_equal": check(
+                routing_hashes(rt) == ref["routing_sha256"]
+                and (pf.n, int(rt.diameter)) == (ref["routers"],
+                                                 ref["diameter"]),
+                "fig9 PF(31) routing tables")}
+    runs = {(r["pattern"], r["mode"]): r for r in ref["runs"]}
+    for pattern in c["patterns"]:
+        pat, pattern_s = synced(torch, lambda: make_pattern(
+            pattern, rt, p=c["p"], seed=c["seed"]))
+        for mode in c["modes"]:
+            want, it = runs[pattern, mode], c["iters"][mode]
+            label = f"fig9 {pattern} {mode}"
+            adaptive = mode in ("ugal", "ugal_pf")
+            fp, row = held_paths(torch, check, rt, pat, mode, c, want,
+                                 label)
+            row = {"pattern": pattern, "mode": mode, "iters": it,
+                   "pattern_s": pattern_s, **row}
+            bars = figure_bars(want, step, factor) if adaptive else {}
+            if want["saturation_source"] != "pf31":  # else main_path's
+                row.update(held_saturation(torch, check, fp, c["tol"], it,
+                                           c["engine"], want, label,
+                                           bars.get("saturation")))
+            else:
+                row.update(loads_route(fp))
+            res, wall, launches = counted(lambda: latency_curve(
+                fp, [want["latency_load"]], iters=it, engine=c["engine"],
+                device="cuda"))
+            lat = res[0].mean_latency
+            lo_hi = bars.get("mean_latency", (
+                want["mean_latency"] * (1 - LATENCY_REL),
+                want["mean_latency"] * (1 + LATENCY_REL)))
+            # one path-cost call a Frank-Wolfe step and one for the
+            # metrics; an oblivious split takes no step
+            want_l = it + 1 if adaptive else 1
+            row["latency"] = {
+                "load": want["latency_load"], "mean_latency": lat,
+                "reference": want["mean_latency"],
+                "rel": abs(lat - want["mean_latency"])
+                / want["mean_latency"], "bar": list(lo_hi),
+                "wall_s": wall, "launches": launches,
+                "ok": check(inside(lat, lo_hi) and launches == want_l,
+                            f"{label} latency {lat} (reference "
+                            f"{want['mean_latency']}, bar {lo_hi}), "
+                            f"launches {launches} (want {want_l})")}
+            if adaptive:
+                gap, wall, launches = counted(lambda: truncation_error(
+                    fp, want["saturation"], it, device="cuda"))
+                lo_hi = bars["truncation_error"]
+                row["truncation"] = {
+                    "offered": want["saturation"], "gap": gap,
+                    "reference": want["truncation_error"],
+                    "bar": list(lo_hi), "wall_s": wall,
+                    "launches": launches,
+                    "ok": check(gap >= 0.0 and inside(gap, lo_hi)
+                                and launches == it,
+                                f"{label} truncation gap {gap} "
+                                f"(reference {want['truncation_error']}, "
+                                f"bar {lo_hi}), launches {launches}")}
+            fig9["runs"].append(row)
+            emit({"phase": "figures.fig9", **row})
+            if (pattern, mode) == (c["patterns"][0], c["modes"][-1]):
+                timed_fp[f"fig9 {pattern} {mode}"] = fp
+    out["fig9"] = fig9
+
+    # Fig. 11: quadric and non-quadric replication, routed without the
+    # PolarFly structure (the base with it, as the benchmark)
+    c, ref = config["fig11"], fixture["fig11"]
+    step = bisection_step(c["tol"])
+    lay, layout_s = synced(torch, lambda: build_layout(pf))
+    out["fig11"] = {"layout_s": layout_s, "graphs": []}
+    for name, method, steps in c["graphs"]:
+        want, label = ref[name], f"fig11 {name}"
+        g, graph_s = synced(torch, lambda: pf.graph if method is None
+                            else expand(lay, steps, method).graph)
+        rt, routing_s = synced(torch, lambda: build_routing(
+            g, pf if method is None else None))
+        deg = g.degrees
+        row = {"graph": name, "routers": g.n, "links": g.num_edges,
+               "diameter": int(rt.diameter), "degree_min": int(deg.min()),
+               "degree_max": int(deg.max()), "graph_s": graph_s,
+               "routing_s": routing_s}
+        row["graph_equal"] = check(
+            graph_hash(g) == want["graph_sha256"]
+            and routing_hashes(rt) == want["routing_sha256"]
+            and {k: row[k] for k in ("routers", "links", "diameter",
+                                     "degree_min", "degree_max")}
+            == {k: want[k] for k in ("routers", "links", "diameter",
+                                     "degree_min", "degree_max")},
+            f"{label} graph or routing tables")
+        pat, row["pattern_s"] = synced(torch, lambda: make_pattern(
+            "uniform", rt, p=c["p"], seed=c["seed"]))
+        fp, prow = held_paths(torch, check, rt, pat, c["mode"], c, want,
+                              label)
+        row.update(prow)
+        row.update(held_saturation(
+            torch, check, fp, c["tol"], c["iters"], c["engine"], want, label,
+            figure_bars(want, step, factor)["saturation"]))
+        out["fig11"]["graphs"].append(row)
+        emit({"phase": "figures.fig11", **row})
+        if name == c["graphs"][-1][0]:
+            timed_fp[f"fig11 {name}"] = fp
+        else:
+            del fp
+    del lay, rt, pat
+
+    # Fig. 14: diameter and ASPL under cumulative random link failures,
+    # every BFS on the card
+    c, ref = config["fig14"], fixture["fig14"]
+    out["fig14"] = {}
+    for name, (builder, args, fractions) in c["graphs"].items():
+        want = ref["sweeps"][name]
+        g, graph_s = synced(torch, lambda: figure_graph(
+            builder, args, topologies, build_polarfly))
+        row = {"routers": g.n, "links": g.num_edges, "graph_s": graph_s,
+               "graph_equal": check(graph_hash(g) == want["graph_sha256"],
+                                    f"fig14 {name} graph"), "points": []}
+        for f, dg, pt in zip(fractions, damaged(g, fractions, c["seed"]),
+                             want["points"]):
+            (diam, aspl), wall = synced(torch, lambda: diameter_and_aspl(
+                dg, engine="sparse", backend="sharded", device="cuda"))
+            row["points"].append({
+                "fraction": f, "diameter": diam, "aspl": aspl,
+                "reference": [pt["diameter"], pt["aspl"]], "wall_s": wall,
+                "ok": check((diam, aspl) == (pt["diameter"], pt["aspl"]),
+                            f"fig14 {name} at {f}: ({diam}, {aspl})")})
+        out["fig14"][name] = row
+        emit({"phase": "figures.fig14", "graph": name, **row})
+
+    # Fig. 14's throughput point: damaged PS(9, 61) through the blocked
+    # stack, its BFS and column sweeps on the card
+    c, want = c["point"], ref["point"]
+    g, graph_s = synced(torch, lambda: figure_graph(
+        *c["graph"], topologies, build_polarfly))
+    edges = g.edge_list
+    drop = edges[np.random.default_rng(c["drop_seed"]).choice(
+        len(edges), int(c["drop"] * len(edges)), replace=False)]
+    dg = g.subgraph_without_edges(drop)
+    rt, routing_s = synced(torch, lambda: build_blocked_routing(
+        dg, backend="sharded", device="cuda"))
+    row = {"routers": dg.n, "links": dg.num_edges, "graph_s": graph_s,
+           "routing_s": routing_s, "diameter": rt.diameter,
+           "dest_block": rt.block,
+           "graph_equal": check(
+               graph_hash(dg) == want["graph_sha256"]
+               and (rt.diameter, rt.block) == (want["diameter"],
+                                               want["dest_block"]),
+               "fig14 point graph, diameter or block")}
+    pat, row["pattern_s"] = synced(torch, lambda: make_pattern(
+        "uniform", rt, p=c["p"], seed=c["seed"],
+        hosts=np.arange(c["hosts"], dtype=np.int32)))
+    fp, prow = held_paths(torch, check, rt, pat, c["mode"], c, want,
+                          "fig14 point")
+    row.update(prow)
+    row.update(held_saturation(torch, check, fp, c["tol"], c["iters"],
+                               c["engine"], want, "fig14 point"))
+    out["fig14_point"] = row
+    emit({"phase": "figures.fig14_point", **row})
+    del fp, rt, dg, g
+    state["figures_launches"] = ops.LAUNCHES  # the figures path's
+
+    # path_costs at fig9's and the non-quadric x4 graph's shapes (the
+    # generic L = 6 kernel); launches here are not the path's
+    def shape_launches(shape):
+        """The launches the path made at `shape` ([F, K, L]), every run
+        of that shape summed."""
+        return sum(r.get("launches", 0)
+                   + r.get("latency", {}).get("launches", 0)
+                   + r.get("truncation", {}).get("launches", 0)
+                   for r in fig9["runs"] + out["fig11"]["graphs"]
+                   if [r["flows"], r["candidates"], r["path_len"]] == shape)
+
+    shapes = [kernel_path_costs_at(torch, label, fp,
+                                   shape_launches(list(fp.edges.shape)))
+              for label, fp in timed_fp.items()]
+    state["path_costs_figures_shapes"] = shapes
+    out["path_costs"] = shapes
+    out["path_costs_launches"] = state["figures_launches"]
+    emit({"phase": "figures.path_costs", "shapes": shapes})
+    if problems:
+        raise AssertionError(f"figures failed their checks: {problems}")
+    return out
 
 
 def scope_device_ms(events, scopes):
@@ -2733,11 +3081,16 @@ def _drive_lm(torch, arch, seq):
 
     t0 = time.perf_counter()
     cfg = get_config(arch)
+    published = cfg.num_layers
+    if arch in DEPTH_CUT:
+        cfg = cfg.with_(num_layers=DEPTH_CUT[arch])
     n_attn = attention_layers(cfg)
     t = time.perf_counter()
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     out["config"] = {**config_record(cfg),
+                     "depth_cut": (f"{cfg.num_layers} of {published} "
+                                   f"layers" if arch in DEPTH_CUT else None),
                      "init_s": time.perf_counter() - t,
                      "param_bytes": sum(p.numel() * p.element_size()
                                         for p in model.parameters())}
@@ -2905,8 +3258,8 @@ def phase_model(torch, state):
 
 
 def phase_moe(torch, state):
-    """deepseek-moe-16b, then qwen2-moe-a2.7b (`drive_lm`, S = 4096): 28
-    and 24 sm90 launches a prefill."""
+    """deepseek-moe-16b, then qwen2-moe-a2.7b (`drive_lm`, S = 4096, at
+    `DEPTH_CUT`'s depths): one sm90 launch a layer of a prefill."""
     out = {}
     for arch in MOE:
         out[arch], sm90, _ = drive_lm(torch, arch, NEW_PREFILL_S)
@@ -2915,8 +3268,8 @@ def phase_moe(torch, state):
 
 
 def phase_hybrid(torch, state):
-    """recurrentgemma-9b (`drive_lm`, S = 4096): 12 sm90 launches a
-    prefill, the RG-LRU scan on the other 26 layers."""
+    """recurrentgemma-9b (`drive_lm`, S = 4096, at `DEPTH_CUT`'s depth):
+    6 sm90 launches a prefill, the RG-LRU scan on the other 13 layers."""
     out, sm90, _ = drive_lm(torch, HYBRID, NEW_PREFILL_S)
     state.setdefault("flash_sm90_launches_by_path", {})[HYBRID] = sm90
     return {HYBRID: out}
@@ -4350,6 +4703,7 @@ def main():
               ("parity", phase_parity, (torch,)),
               ("main_path", phase_main_path, (torch, state)),
               ("table5", phase_table5, (torch, state)),
+              ("figures", phase_figures, (torch, state)),
               ("certified", phase_certified, (torch, state)),
               ("packet", phase_packet, (torch, state)),
               ("analysis", phase_analysis, (torch, state)),
@@ -4416,6 +4770,8 @@ def main():
             k["scale_shapes"] = state.get("path_costs_scale_shapes")
             k["launches_table5"] = state.get("table5_launches", 0)
             k["table5_shapes"] = state.get("path_costs_table5_shapes")
+            k["launches_figures"] = state.get("figures_launches", 0)
+            k["figures_shapes"] = state.get("path_costs_figures_shapes")
     smoke.record["kernels"] = kernels
     smi = nvidia_smi()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -82,11 +82,42 @@ from the fixture's `config`.  About 20 minutes of JAX on the CPU.  Writes
 `scripts/table5_sensitivity.py --write` adds each random_perm adaptive
 run's ±1-ulp band, which the phase's bar widens by.
 
+With `--figures` it records the paper's remaining fluid figures that the
+smoke script's `figures` phase holds the port against, the grid in
+`FIGURES` (the one source, read back from the fixture's `config`):
+
+* Fig. 9, `benchmarks/bench_fig9_adaptive.py` at PF(31): perm1hop,
+  perm2hop and tornado traffic (p = 16, seed 0) under min, ugal and
+  ugal_pf (`k_candidates=10`), each run's saturation
+  (`saturation_throughput(tol=0.01, engine="batched")`, 250 / 1500
+  Frank-Wolfe steps), its `latency_curve` mean latency at
+  `chip_smoke.fig9_load(sat)` and, adaptive, its `truncation_error` at the
+  saturation; random_perm's latency and truncation rows at the saturations
+  of tests/fixtures/torch_port_pf31_reference.json;
+* Fig. 11, `benchmarks/bench_fig11_expansion.py` at PF(31): the base graph
+  (routed with its PolarFly, as the benchmark) and `expand(layout, 2 | 4,
+  "quadric" | "nonquadric")` (routed by `build_routing(g)` alone), uniform
+  p = 16 at seed 0, ugal_pf with `k_candidates=8`, tol 0.02, 1500 steps;
+  each graph's size, diameter, degrees and hashes;
+* Fig. 14, `benchmarks/bench_fig14_resilience.py`: `resilience_sweep(g,
+  fractions, seed=1)`'s diameter and ASPL on PF(13), SF(9), JF(183, 14)
+  and DF(6, 3) at 0.05 / 0.2 / 0.4 / 0.55 and on PS(9, 61) and
+  JF(5551, 40) at 0.05 / 0.2; and `_run_large_fluid`'s point, PS(9, 61)
+  less `default_rng(1)`'s 5 % of its links through `build_blocked_routing`,
+  512 host routers, p = 20, min, tol 0.02.
+
+About 25 minutes of JAX on the CPU.  Writes
+`tests/fixtures/torch_port_figures_reference.json`; then
+`scripts/table5_sensitivity.py --figures --write` adds each adaptive
+saturation's, latency point's and truncation gap's band over the
+reference's runs with the demand moved up to `ulp_moves` ulps each way.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --certified
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --packet
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --scale
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --table5
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --figures
 """
 import argparse
 import dataclasses
@@ -104,17 +135,23 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from chip_smoke import (flow_hashes, routing_hashes,  # noqa: E402
+from chip_smoke import (fig9_load, figure_graph,  # noqa: E402
+                        flow_hashes, graph_hash, routing_hashes,
                         sweep_dests, table5_traffic)
 
+from repro.core import topologies  # noqa: E402
+from repro.core.expansion import expand  # noqa: E402
+from repro.core.layout import build_layout  # noqa: E402
+from repro.core.metrics import resilience_sweep  # noqa: E402
 from repro.core.polarfly import build_polarfly  # noqa: E402
 from repro.core.topologies import paper_table5_configs  # noqa: E402
 from repro.core.routing import (build_blocked_routing,  # noqa: E402
                                 build_routing, destination_blocks)
 from repro.simulation import (BurstSchedule,  # noqa: E402
                               build_failure_workload, build_flow_paths,
-                              make_pattern, make_workload,
-                              saturation_throughput, simulate_packets)
+                              latency_curve, make_pattern, make_workload,
+                              saturation_throughput, simulate_packets,
+                              truncation_error)
 
 Q, P, SEED, K_CANDIDATES, TOL = 31, 16, 0, 10, 0.01
 ITERS = {"min": 250, "ugal": 1500, "ugal_pf": 1500}
@@ -168,6 +205,47 @@ TABLE5 = {"seed": 0, "topologies": ["SF", "DF1", "DF2", "JF", "FT"],
           "iters": {"min": 250, "ecmp": 250, "ugal": 1500, "ugal_pf": 1500}}
 TABLE5_OUT = os.path.join(ROOT, "tests", "fixtures",
                           "torch_port_table5_reference.json")
+# the paper's remaining fluid figures: fig9's, fig11's and fig14's run()
+# (fig14's BENCH_LARGE tier and its `_run_large_fluid` point; PF(31) and
+# PF(79)'s sweeps are the smoke script's analysis phase)
+FIGURES = {
+    "fig9": {"q": 31, "p": 16, "seed": 0, "k_candidates": 10, "tol": 0.01,
+             "engine": "batched",
+             "patterns": ["perm1hop", "perm2hop", "tornado", "random_perm"],
+             "modes": ["min", "ugal", "ugal_pf"],
+             "iters": {"min": 250, "ugal": 1500, "ugal_pf": 1500},
+             # random_perm's saturations are the PF(31) fixture's
+             "saturations_from": "torch_port_pf31_reference.json",
+             # the sensitivity runs' demand moves: 1 and 2 ulps each way
+             # (the reference's own tornado ugal saturation reads 0.21875,
+             # 0.2265625 and 0.25 at -1, 0 and -2 ulps)
+             "ulp_moves": 2},
+    "fig11": {"q": 31, "p": 16, "seed": 0, "k_candidates": 8, "tol": 0.02,
+              "iters": 1500, "engine": "batched", "mode": "ugal_pf",
+              "ulp_moves": 1,
+              # (name, method, steps); the base is routed with its PolarFly
+              "graphs": [["base", None, 0], ["quadric_x2", "quadric", 2],
+                         ["quadric_x4", "quadric", 4],
+                         ["nonquadric_x2", "nonquadric", 2],
+                         ["nonquadric_x4", "nonquadric", 4]]},
+    "fig14": {"seed": 1,
+              # name: [builder, arguments, fractions]
+              "graphs": {
+                  "PF13": ["build_polarfly", [13], [0.05, 0.2, 0.4, 0.55]],
+                  "SF9": ["build_slimfly", [9], [0.05, 0.2, 0.4, 0.55]],
+                  "JF": ["build_jellyfish", [183, 14, 0],
+                         [0.05, 0.2, 0.4, 0.55]],
+                  "DF1": ["build_dragonfly", [6, 3], [0.05, 0.2, 0.4, 0.55]],
+                  "PS9x61": ["build_polarstar", [9, 61], [0.05, 0.2]],
+                  "JF5551": ["build_jellyfish", [5551, 40, 0], [0.05, 0.2]]},
+              "point": {"graph": ["build_polarstar", [9, 61]],
+                        "drop": 0.05, "drop_seed": 1, "hosts": 512,
+                        "p": 20, "seed": 0, "mode": "min",
+                        "k_candidates": 8, "tol": 0.02, "iters": 250,
+                        "engine": "batched"}},
+}
+FIGURES_OUT = os.path.join(ROOT, "tests", "fixtures",
+                           "torch_port_figures_reference.json")
 
 
 def write(path, doc):
@@ -413,6 +491,149 @@ def table5():
         "config": TABLE5, "topologies": tops})
 
 
+def _fig9():
+    c = FIGURES["fig9"]
+    with open(os.path.join(ROOT, "tests", "fixtures",
+                           c["saturations_from"])) as fh:
+        pf31 = {(r["pattern"], r["mode"]): r["saturation"]
+                for r in json.load(fh)["saturations"]}
+    pf = build_polarfly(c["q"])
+    rt = build_routing(pf.graph, pf)
+    out = {"routers": pf.n, "diameter": int(rt.diameter),
+           "routing_sha256": routing_hashes(rt), "runs": []}
+    for pattern in c["patterns"]:
+        pat = make_pattern(pattern, rt, p=c["p"], seed=c["seed"])
+        for mode in c["modes"]:
+            it = c["iters"][mode]
+            t0 = time.perf_counter()
+            fp = build_flow_paths(rt, pat, mode,
+                                  k_candidates=c["k_candidates"],
+                                  seed=c["seed"])
+            t1 = time.perf_counter()
+            if pattern == "random_perm":
+                sat, sat_s = pf31[pattern, mode], None
+            else:
+                sat = float(saturation_throughput(
+                    fp, tol=c["tol"], iters=it, engine=c["engine"]))
+                sat_s = round(time.perf_counter() - t1, 1)
+            t2 = time.perf_counter()
+            load = fig9_load(sat)
+            lat = float(latency_curve(fp, [load], iters=it,
+                                      engine=c["engine"])[0].mean_latency)
+            t3 = time.perf_counter()
+            f, k, l = fp.edges.shape
+            row = {"pattern": pattern, "mode": mode, "iters": it,
+                   "saturation": sat,
+                   "saturation_source": ("pf31" if sat_s is None
+                                         else "this run"),
+                   "latency_load": load, "mean_latency": lat,
+                   "flows": f, "candidates": k, "path_len": l,
+                   "num_links": fp.num_links, "sha256": flow_hashes(fp),
+                   "cpu_paths_s": round(t1 - t0, 1),
+                   "cpu_saturation_s": sat_s,
+                   "cpu_latency_s": round(t3 - t2, 1)}
+            if mode in ("ugal", "ugal_pf"):
+                row["truncation_error"] = float(truncation_error(fp, sat,
+                                                                 it))
+                row["cpu_truncation_s"] = round(time.perf_counter() - t3, 1)
+            out["runs"].append(row)
+            print(json.dumps({"figure": "fig9", **row}), flush=True)
+    return out
+
+
+def _fig11():
+    c = FIGURES["fig11"]
+    pf = build_polarfly(c["q"])
+    lay = build_layout(pf)
+    out = {}
+    for name, method, steps in c["graphs"]:
+        t0 = time.perf_counter()
+        g = pf.graph if method is None else expand(lay, steps, method).graph
+        rt = build_routing(g, pf) if method is None else build_routing(g)
+        t1 = time.perf_counter()
+        pat = make_pattern("uniform", rt, p=c["p"], seed=c["seed"])
+        fp = build_flow_paths(rt, pat, c["mode"],
+                              k_candidates=c["k_candidates"], seed=c["seed"])
+        t2 = time.perf_counter()
+        sat = float(saturation_throughput(fp, tol=c["tol"], iters=c["iters"],
+                                          engine=c["engine"]))
+        f, k, l = fp.edges.shape
+        deg = g.degrees
+        out[name] = {
+            "method": method, "steps": steps, "routers": g.n,
+            "links": g.num_edges, "diameter": int(rt.diameter),
+            "degree_min": int(deg.min()), "degree_max": int(deg.max()),
+            "graph_sha256": graph_hash(g),
+            "routing_sha256": routing_hashes(rt), "saturation": sat,
+            "flows": f, "candidates": k, "path_len": l,
+            "num_links": fp.num_links, "sha256": flow_hashes(fp),
+            "cpu_routing_s": round(t1 - t0, 1),
+            "cpu_paths_s": round(t2 - t1, 1),
+            "cpu_wall_s": round(time.perf_counter() - t2, 1)}
+        print(json.dumps({"figure": "fig11", "graph": name, **out[name]}),
+              flush=True)
+    return out
+
+
+def _fig14():
+    c = FIGURES["fig14"]
+    sweeps = {}
+    for name, (builder, args, fractions) in c["graphs"].items():
+        t0 = time.perf_counter()
+        g = figure_graph(builder, args, topologies, build_polarfly)
+        t1 = time.perf_counter()
+        pts = resilience_sweep(g, fractions, seed=c["seed"])
+        sweeps[name] = {
+            "routers": g.n, "links": g.num_edges,
+            "graph_sha256": graph_hash(g),
+            "points": [{"fraction": p.fail_fraction, "diameter": p.diameter,
+                        "aspl": p.aspl} for p in pts],
+            "cpu_graph_s": round(t1 - t0, 1),
+            "cpu_sweep_s": round(time.perf_counter() - t1, 1)}
+        print(json.dumps({"figure": "fig14", "graph": name,
+                          **sweeps[name]}), flush=True)
+    c = c["point"]
+    t0 = time.perf_counter()
+    g = figure_graph(*c["graph"], topologies, build_polarfly)
+    edges = g.edge_list
+    rng = np.random.default_rng(c["drop_seed"])
+    dg = g.subgraph_without_edges(edges[rng.choice(
+        len(edges), int(c["drop"] * len(edges)), replace=False)])
+    t1 = time.perf_counter()
+    rt = build_blocked_routing(dg)
+    t2 = time.perf_counter()
+    pat = make_pattern("uniform", rt, p=c["p"], seed=c["seed"],
+                       hosts=np.arange(c["hosts"], dtype=np.int32))
+    fp = build_flow_paths(rt, pat, c["mode"], k_candidates=c["k_candidates"],
+                          seed=c["seed"])
+    t3 = time.perf_counter()
+    sat = float(saturation_throughput(fp, tol=c["tol"], iters=c["iters"],
+                                      engine=c["engine"]))
+    f, k, l = fp.edges.shape
+    point = {"routers": dg.n, "links": dg.num_edges,
+             "graph_sha256": graph_hash(dg), "diameter": int(rt.diameter),
+             "dest_block": int(rt.block), "saturation": sat, "flows": f,
+             "candidates": k, "path_len": l, "num_links": fp.num_links,
+             "sha256": flow_hashes(fp),
+             "cpu_graph_s": round(t1 - t0, 1),
+             "cpu_routing_s": round(t2 - t1, 1),
+             "cpu_paths_s": round(t3 - t2, 1),
+             "cpu_wall_s": round(time.perf_counter() - t3, 1)}
+    print(json.dumps({"figure": "fig14", "point": "PS9x61_f5", **point}),
+          flush=True)
+    return {"sweeps": sweeps, "point": point}
+
+
+def figures():
+    doc = {"source": "repro (JAX package), batched engine, CPU",
+           "script": "scripts/make_torch_port_reference.py --figures",
+           "jax": jax.__version__, "numpy": np.__version__,
+           "config": FIGURES}
+    for key, fn in (("fig9", _fig9), ("fig11", _fig11), ("fig14", _fig14)):
+        doc[key] = fn()
+    write(FIGURES_OUT, doc)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--certified", action="store_true",
@@ -424,7 +645,12 @@ def main():
     ap.add_argument("--table5", action="store_true",
                     help="record the Table V competitors' saturations "
                          "instead")
+    ap.add_argument("--figures", action="store_true",
+                    help="record Fig. 9, Fig. 11 and Fig. 14's runs "
+                         "instead")
     args = ap.parse_args()
+    if args.figures:
+        return figures()
     if args.table5:
         return table5()
     if args.scale:

@@ -127,17 +127,22 @@ def build_polarfly(q: int, chunk: int = 2048) -> PolarFly:
 
     neighbors = []
     quadric = np.zeros(n, dtype=bool)
-    # chunked all-pairs dot products (tables are int32; N^2*3 lookups)
+    # chunked all-pairs dot products: for prime q a float32 matrix product
+    # mod q (exact while each dot, an integer below 3 q^2, is below 2^24:
+    # q <= 2364); else table lookups (N^2*3 of them)
+    cols = vt.T.astype(np.float32)
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
-        d = gf.dot3(vt[lo:hi, None, :], vt[None, :, :])  # [hi-lo, N]
-        for i in range(lo, hi):
-            row = d[i - lo]
-            nb = np.where(row == 0)[0]
-            if row[i] == 0:
-                quadric[i] = True
-                nb = nb[nb != i]
-            neighbors.append(nb.astype(np.int32))
+        if gf.m == 1 and 3 * q * q <= 1 << 24:
+            d = (vt[lo:hi].astype(np.float32) @ cols).astype(np.int32) % q
+        else:
+            d = gf.dot3(vt[lo:hi, None, :], vt[None, :, :])
+        # each row's zeros in column order, split per row
+        r, c = np.nonzero(d == 0)
+        quadric[lo + r[c == lo + r]] = True
+        keep = c != lo + r
+        ends = np.cumsum(np.bincount(r[keep], minlength=hi - lo))[:-1]
+        neighbors.extend(np.split(c[keep].astype(np.int32), ends))
 
     v1 = np.zeros(n, dtype=bool)
     for w in np.where(quadric)[0]:

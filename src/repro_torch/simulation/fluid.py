@@ -318,6 +318,67 @@ def _max_util(rho: torch.Tensor, num_links: int) -> torch.Tensor:
     return rho.new_zeros(rho.shape[:-1])
 
 
+def _in_order(g: torch.Tensor) -> torch.Tensor:
+    """``g.sum(dim=-2)`` from 0, one term after another."""
+    acc = g.new_zeros(g.shape[:-2] + g.shape[-1:])
+    for row in g.unbind(-2):
+        acc = acc + row
+    return acc
+
+
+def _xla_row_sum(g: torch.Tensor, gathered: bool = True) -> torch.Tensor:
+    """``g.sum(dim=-2)`` in the order XLA:CPU sums the reference's gathered
+    link-load rows.  A row of more than 32 terms is cut into windows of 32,
+    the padding split evenly before and after it (XLA's tree-reduction
+    rewrite); each window is summed in order, and the windows' sums are
+    summed as a row in turn (`gathered` false: in order up to 32).  A
+    gathered row of up to 27 terms is summed in order; one of 28 to 32 in
+    eight lanes (term j in lane j % 8 while whole groups of eight last),
+    the lanes added by halves, then the rest in order, as the compiled
+    loop does."""
+    n = g.shape[-2]
+    if n > 32:
+        windows = -(-n // 32)
+        lo = (windows * 32 - n) // 2
+        return _xla_row_sum(torch.stack(
+            [_in_order(g[..., max(0, 32 * i - lo):32 * (i + 1) - lo, :])
+             for i in range(windows)], dim=-2), gathered=False)
+    if n < 28 or not gathered:
+        return _in_order(g)
+    whole = n - n % 8
+    lanes = [_in_order(g[..., j:whole:8, :]) for j in range(8)]
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + half] for i in range(half)]
+    acc = lanes[0]
+    for row in g[..., whole:, :].unbind(-2):
+        acc = acc + row
+    return acc
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for the Frank-Wolfe update and the UGAL_PF blend.
+
+    On the CPU in float32 it is rounded once, as a fused multiply-add: the
+    reference runs these updates under XLA:CPU, which contracts each into
+    one FMA, and the iterate follows the reference's bit for bit only if it
+    rounds as it does (one ulp apart at a step is enough to move a
+    saturation on a plateau by a bisection step).  The float64 product of
+    two float32 is exact; the float64 sum is made round-to-odd from its
+    TwoSum residual, so its rounding to float32 is the correctly rounded
+    FMA.  On the card, and in float64, it is ``a * b + c``.
+    """
+    if a.device.type != "cpu" or torch.result_type(a, b) != torch.float32:
+        return a * b + c
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    odd = (err == 0) | ((s.view(torch.int64) & 1) == 1)
+    return torch.where(odd, s, torch.nextafter(s, s + err)).float()
+
+
 def _where_tree(keep, new, old):
     """`new` where the per-load flag `keep` [P] is set, else `old`, on
     every tensor of two matching nested tuples whose leading dim is P."""
@@ -449,13 +510,21 @@ def _fw_pieces(eidx, loads_rep, valid, is_min, first_edge, num_links: int,
     # infeasibility certificate's load-conservation budget)
     lmax = torch.where(valid, (eidx < num_links).sum(dim=-1), 0).amax(dim=1)
 
+    inc_t = (loads_rep[1].t().contiguous() if loads_rep[0] == "pad"
+             and loads_rep[1].device.type == "cpu" else None)
+
     def loads(split, demand):
         w = (split * demand[..., None]).flatten(-2)  # [..., F*K]
         if loads_rep[0] == "pad":
             inc = loads_rep[1]  # [E, W], pad index F*K -> zero weight
             w = torch.cat([w, w.new_zeros(w.shape[:-1] + (1,))], dim=-1)
-            return w.index_select(-1, inc.reshape(-1)).unflatten(
-                -1, inc.shape).sum(dim=-1)  # [..., E]
+            if w.device.type != "cpu":
+                return w.index_select(-1, inc.reshape(-1)).unflatten(
+                    -1, inc.shape).sum(dim=-1)  # [..., E]
+            # on the CPU in XLA:CPU's order (`_xla_row_sum`): the loads
+            # equal the reference's bit for bit
+            return _xla_row_sum(w.index_select(-1, inc_t.reshape(-1))
+                                .unflatten(-1, inc_t.shape))  # [..., E]
         # "scatter" fallback for pathologically skewed incidence counts:
         # slower, but rounding stays proportional to each edge's own load
         real = (eidx < num_links).to(w.dtype)  # [F, K, L]
@@ -486,7 +555,8 @@ def _fw_pieces(eidx, loads_rep, valid, is_min, first_edge, num_links: int,
             qlen = _queue_delay(r1) * r1  # Little
             gate = ((qlen / _BUF_PACKETS - 2.0 / 3.0) * 8.0).clamp(0.0, 1.0)
             gate = torch.where(has_alt, gate, 0.0)
-            target = gate[..., None] * target + (1 - gate)[..., None] * minvec
+            target = _fma(gate[..., None], target,
+                          (1 - gate)[..., None] * minvec)
         return target
 
     def fw_target(split, rho):
@@ -515,7 +585,7 @@ def _fw_pieces(eidx, loads_rep, valid, is_min, first_edge, num_links: int,
         split = split0
         for i in range(iters):
             rho = loads(split, demand)
-            split = keeps[i] * split + gammas[i] * fw_target(split, rho)
+            split = _fma(keeps[i], split, gammas[i] * fw_target(split, rho))
         return split
 
     def equilibrate_traced(split0, demand, iters: int, t0: float = 0.0):
@@ -542,7 +612,7 @@ def _fw_pieces(eidx, loads_rep, valid, is_min, first_edge, num_links: int,
                                torch.where(valid, cost, float("inf")))
             gaps[..., i] = gap_of(split, target, cost, demand)
             mus[..., i] = _max_util(rho, num_links)
-            split = keeps[i] * split + gammas[i] * target
+            split = _fma(keeps[i], split, gammas[i] * target)
         return split, (gaps, mus, gammas.expand(batch + (iters,)))
 
     # fp64 certification chases much smaller gaps and digs a deeper
@@ -857,7 +927,7 @@ def _truncation_gap(fp: FlowPaths, offered: float, iters: int,
     acc = torch.zeros(fp.num_links, dtype=torch.float32, device=dev)
     for i in range(iters):
         rho = fw.loads(split, d)
-        split = keeps[i] * split + gammas[i] * fw.fw_target(split, rho)
+        split = _fma(keeps[i], split, gammas[i] * fw.fw_target(split, rho))
         acc = acc + rho
     return (fw.loads(split, d) - acc / iters).abs().max()
 

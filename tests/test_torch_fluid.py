@@ -4,16 +4,20 @@
 Tolerances, and why:
 
 * Oblivious modes run no Frank-Wolfe step, so only summation order
-  separates the two: link loads within 1e-6 relative; saturations equal.
+  could separate the two: link loads within 1e-6 relative; saturations
+  equal.
 * Adaptive modes (tests/test_torch_fluid_adaptive_pf*.py): latency curves
   within 1e-3 relative (the bar between the JAX package's own engines)
   below saturation at 1000 Frank-Wolfe steps; saturations within 0.05,
-  the reference's adaptive tolerance.  XLA on the CPU fuses a*b + c into
-  FMAs where PyTorch rounds twice, so the two differ in the last bits, and
-  an unconverged adaptive iterate is chaotic in its last bits past
-  saturation or on the UGAL_PF gate plateau: there the reference's own
-  result moves by more than 1e-3 when its demand moves by one ulp
-  (`scripts/reference_sensitivity.py`).
+  the reference's adaptive tolerance.  An unconverged adaptive iterate is
+  chaotic in its last bits past saturation or on the UGAL_PF gate
+  plateau: there the reference's own result moves by more than 1e-3 when
+  its demand moves by one ulp (`scripts/reference_sensitivity.py`).
+* The Frank-Wolfe iterate itself is the reference's bit for bit on the
+  CPU: XLA:CPU contracts the step's update and the UGAL_PF blend into
+  fused multiply-adds and sums each link's load row in windows of 32,
+  and the port's CPU path does the same (`_fma`, `_xla_row_sum`).  The
+  latency metrics' own sums still run in PyTorch's order.
 """
 import inspect
 
@@ -110,14 +114,88 @@ def test_fw_pieces_match_reference(mode):
     cost_t = tfw.cost_of(rho_t)
     target_t = tfw.fw_target(tsplit, rho_t)
     gap_t = float(tfw.gap_of(tsplit, target_t, cost_t, td))
-    # loads differ in the last bits (summation order); the M/D/1 delay
-    # amplifies a relative error in rho by up to 1 / (1 - _RHO_CAP) = 1000
+    # loads may differ in the last bits where the orders differ; the M/D/1
+    # delay amplifies a relative error in rho by up to 1 / (1 - _RHO_CAP)
     np.testing.assert_allclose(rho_t.numpy(), np.asarray(rho_r), rtol=1e-6)
     np.testing.assert_allclose(cost_t.numpy(), np.asarray(cost_r), rtol=1e-3)
     # the UGAL_PF gate's slope in rho reaches ~1e3 near the delay cap
     np.testing.assert_allclose(target_t.numpy(), np.asarray(target_r),
                                atol=1e-3)
     assert gap_t == pytest.approx(gap_r, rel=1e-3)
+
+
+# uniform at PF(7): link-load rows of up to 213 terms, cut into windows;
+# perm1hop at PF(13): rows of at most 32, summed in one run
+ITERATE_GRID = [(7, "uniform"), (13, "perm1hop")]
+
+
+@pytest.mark.parametrize("q,pattern", ITERATE_GRID)
+@pytest.mark.parametrize("mode", ADAPTIVE)
+def test_frank_wolfe_iterate_is_the_reference_bit_for_bit(q, pattern, mode):
+    """300 Frank-Wolfe steps from the cold start, at offered 1.0 (past
+    saturation, where the iterate is chaotic in its last bits): the port's
+    split on the CPU equals the reference's bit for bit.  Rounding the
+    update ``(1 - gamma) * split + gamma * target`` twice, or summing a
+    link's load row in another order, parts them within a few steps."""
+    fp, tfp = flow_paths(q, "intact", pattern, mode)
+    eidx, rep, valid, is_min, first_edge, demand, _ = fp.device_arrays()
+    rfw = r_fluid._fw_pieces(eidx, rep[1:], rep[0], valid, is_min,
+                             first_edge, fp.num_links, mode)
+    want = np.asarray(rfw.equilibrate(rfw.init, demand, 300))
+    tfw, tdemand, _, _ = t_fluid._pieces(tfp, CPU)
+    got = tfw.equilibrate(tfw.init, tdemand, 300).numpy()
+    assert np.array_equal(got, want), int((got != want).sum())
+    rho = np.asarray(rfw.loads(rfw.init, demand))
+    assert np.array_equal(tfw.loads(tfw.init, tdemand).numpy(), rho)
+
+
+def test_fma_rounds_once():
+    """`_fma(a, b, c)` is ``a * b + c`` rounded once to float32: held
+    against the exact value, rounded to nearest (ties to even), on values
+    whose product and sum need every bit (a plain float32 ``a * b + c``
+    misses on most of them)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    n = 2000
+    a = (1 + rng.random(n)).astype(np.float32)
+    b = (1 + rng.random(n)).astype(np.float32)
+    c = (rng.random(n) * np.exp2(rng.integers(-30, 3, n))
+         * rng.choice([-1, 1], n)).astype(np.float32)
+    got = t_fluid._fma(torch.from_numpy(a), torch.from_numpy(b),
+                       torch.from_numpy(c)).numpy()
+
+    def nearest(x):
+        f = np.float32(float(x))
+        cands = [np.nextafter(f, np.float32(-np.inf)), f,
+                 np.nextafter(f, np.float32(np.inf))]
+        return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                         int(v.view(np.int32)) & 1))
+
+    want = np.array([nearest(Fraction(float(x)) * Fraction(float(y))
+                             + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    assert np.array_equal(got, want)
+    assert not np.array_equal(a * b + c, want)
+
+
+@pytest.mark.parametrize("width", [1, 7, 27, 28, 31, 32, 33, 63, 100, 1000,
+                                   1025])
+def test_xla_row_sum_is_xla_s_order(width):
+    """`_xla_row_sum` of a gathered [E, W] table equals the reference's
+    jitted ``w[inc].sum(axis=1)`` bit for bit: rows summed in order, in
+    eight lanes (28 to 32 terms), cut into windows of 32, and past 28
+    windows."""
+    import jax
+
+    rng = np.random.default_rng(width)
+    links = 64
+    w = rng.random(links * width + 1, dtype=np.float32) * np.float32(3.0)
+    w[-1] = 0.0
+    inc = rng.integers(0, w.size, size=(links, width)).astype(np.int32)
+    want = np.asarray(jax.jit(lambda w, inc: w[inc].sum(axis=1))(w, inc))
+    got = t_fluid._xla_row_sum(torch.from_numpy(w[inc].T.copy()))
+    assert np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("mode", ("min",) + ADAPTIVE)

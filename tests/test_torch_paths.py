@@ -51,6 +51,19 @@ def test_polarfly_identical(q):
     assert_same(rpf.quadrics, tpf.quadrics, "quadrics")
 
 
+@pytest.mark.parametrize("q,chunk", [(31, 100), (79, 2048), (9, 10)])
+def test_polarfly_identical_across_chunks(q, chunk):
+    """The chunked all-pairs build (a prime q: one float32 matrix product
+    a chunk, mod q; a prime power: table lookups) gives the reference's
+    graph and vertex classes whatever the chunk."""
+    rpf, tpf = r_build_polarfly(q), t_build_polarfly(q, chunk=chunk)
+    assert_same(rpf.graph.edge_list, tpf.graph.edge_list, "edge_list")
+    for a, b in zip(rpf.graph.csr, tpf.graph.csr):
+        assert_same(a, b, "csr")
+    for k in ("quadric_mask", "v1_mask", "v2_mask"):
+        assert_same(getattr(rpf, k), getattr(tpf, k), k)
+
+
 @pytest.mark.parametrize("q,which", GRID)
 @pytest.mark.parametrize("engine", ["dense", "sparse"])
 def test_routing_tables_identical(q, which, engine):
