@@ -4632,7 +4632,12 @@ def cards_record(ranks, restore, check):
             "meshless_vs_float32", "ep_vs_float32", "ep_vs_float32_bar",
             "ep_over_meshless", "rel_rms", "max_abs_err", "logits_max_abs",
             "argmax_agree_share", "next_token", "next_token_meshless",
-            "wall_s", "meshless_wall_s", "ok")}
+            "next_margin", "next_margin_meshless", "held_tokens",
+            "meshless_vs_float32_held", "ep_vs_float32_held",
+            "ep_over_meshless_held", "wall_s", "meshless_wall_s", "ok")}
+        out["moe_prefill"]["flips"] = [
+            {k: f[k] for k in ("layer", "flips", "unexplained", "median_gap")}
+            for f in mp["flips"]]
         out["moe_prefill"]["slack"] = cards.EP_BF16_SLACK
         out["moe_prefill"]["wall_s_by_rank"] = [
             r["moe_prefill"]["wall_s"] for r in ranks]

@@ -8,7 +8,10 @@ parameter values to 1 + `EP_BF16_SLACK` times the meshless bf16 logits'
 distance.  This runs the part at each batch and sequence length given and
 each token seed, and prints one JSON line a run: the two distances, their
 ratio, the share of positions whose argmax agrees, whether the next token
-is equal, and the part's verdict.
+is equal, and the part's verdict; then the same ratio over the tokens no
+routing flip between the two bf16 runs reaches (``held``, of ``tokens``),
+the flips in each MoE layer (and how many are not at a near tie), and
+each run's margin between its two largest logits at the last position.
 
     PYTHONPATH=src python scripts/ep_bf16_yardstick.py \
         [--shapes 1x32,2x32,1x64] [--seeds 0-6]
@@ -54,6 +57,12 @@ def main(argv=None):
                 "next_token_equal":
                     row["next_token"] == row["next_token_meshless"],
                 "finite": row["finite"], "ok": row["ok"],
+                "tokens": b * s, "held": row["held_tokens"],
+                "ratio_held": row["ep_over_meshless_held"],
+                "flips": [f["flips"] for f in row["flips"]],
+                "unexplained": sum(f["unexplained"] for f in row["flips"]),
+                "next_margin": row["next_margin"],
+                "next_margin_meshless": row["next_margin_meshless"],
                 "s": round(time.perf_counter() - t, 1)}), flush=True)
 
 

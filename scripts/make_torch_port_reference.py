@@ -118,12 +118,32 @@ reference's runs with the demand moved up to `ulp_moves` ulps each way.
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --scale
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --table5
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --figures
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --collectives
+
+With `--collectives` it records the collectives of the reference's
+compiled four-card train step that tests/test_torch_collectives.py holds
+the port's traced step against: qwen3-4b `train_4k` on a (2, 2) ("data",
+"model") mesh of 4 forced CPU devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count=4``, in a subprocess a
+run: XLA fixes its device count when it first starts), the plan
+`repro.launch.cells.plan_cell` gives there with the port's four-card plan
+fields set on it (`COLLECTIVES`: tp2d, remat "full", 16 microbatches,
+AdamW with float32 state and accumulation), once without and once with
+sequence parallelism.  `repro.launch.dryrun._lower_cell` lowers the step,
+``.compile()`` compiles it, and `repro.launch.collbreak.breakdown` counts
+its collectives with their loop trip counts.  Each row keeps the kind,
+the result's dims and dtype, the group size, fwd / bwd / opt, the op, the
+calls and the wire bytes of the whole step; the dims, not the dtype, are
+what the test matches, since XLA's CPU backend carries bf16 collectives
+in float32.  About half a minute.  Writes
+`tests/fixtures/torch_port_collectives_reference.json`.
 """
 import argparse
 import dataclasses
 import hashlib
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -246,6 +266,18 @@ FIGURES = {
 }
 FIGURES_OUT = os.path.join(ROOT, "tests", "fixtures",
                            "torch_port_figures_reference.json")
+# the four-card train step: qwen3-4b train_4k on (2, 2) at the port's
+# four-card plan (launch.cells.plan_cell at 80 GB a card), without and
+# with sequence parallelism
+COLLECTIVES = {"arch": "qwen3-4b", "shape": "train_4k",
+               "mesh": [2, 2], "axes": ["data", "model"],
+               "plan": {"profile": "tp2d", "remat": "full",
+                        "num_microbatches": 16, "optimizer": "adamw",
+                        "opt_dtype": "float32", "accum_dtype": "float32"},
+               # run name: seq_parallel
+               "runs": {"tp2d": False, "tp2d_sp": True}}
+COLLECTIVES_OUT = os.path.join(ROOT, "tests", "fixtures",
+                               "torch_port_collectives_reference.json")
 
 
 def write(path, doc):
@@ -634,6 +666,69 @@ def figures():
     write(FIGURES_OUT, doc)
 
 
+def _collectives_run(name):
+    """One compiled step's collectives (run `name` of `COLLECTIVES`), in
+    a process whose XLA_FLAGS force 4 host devices."""
+    devices = jax.devices()  # XLA starts here, before repro.launch's
+    # modules add their 512 devices to XLA_FLAGS
+    assert len(devices) == 4, devices
+    from repro.configs import get_config
+    from repro.launch import collbreak, dryrun
+    from repro.launch.cells import plan_cell
+    from repro.launch.mesh import make_mesh
+
+    c = COLLECTIVES
+    cfg = get_config(c["arch"])
+    mesh = make_mesh(tuple(c["mesh"]), tuple(c["axes"]))
+    plan = plan_cell(cfg, c["shape"], mesh)
+    for k, v in c["plan"].items():
+        setattr(plan, k, v)
+    plan.seq_parallel = c["runs"][name]
+    t0 = time.perf_counter()
+    lowered, _ = dryrun._lower_cell(cfg, plan, c["shape"], mesh)
+    compiled = lowered.compile()
+    compile_s = time.perf_counter() - t0
+    top, counts, total = collbreak.breakdown(compiled.as_text(),
+                                             top=1 << 30)
+    rows = []
+    for (kind, what, g, region), wire in top:
+        dtype, dims = what.split("[", 1)
+        phase, op = region.split(":", 1)
+        rows.append({"kind": kind, "dtype": dtype,
+                     "dims": [int(d) for d in dims.rstrip("]").split(",")
+                              if d],
+                     "g": int(g[1:]), "phase": phase, "op": op,
+                     "calls": counts[(kind, what, g, region)],
+                     "wire_bytes": wire})
+    return {"seq_parallel": plan.seq_parallel,
+            "layers": cfg.num_layers,
+            "microbatches": plan.num_microbatches,
+            "wire_bytes": total,
+            "wire_bytes_a_microbatch": total / plan.num_microbatches,
+            "compile_s": round(compile_s, 1), "rows": rows}
+
+
+def collectives():
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
+    doc = {"source": "repro (JAX package), the compiled train step's "
+                     "collectives on 4 forced CPU devices",
+           "script": "scripts/make_torch_port_reference.py --collectives",
+           "jax": jax.__version__, "config": COLLECTIVES, "runs": {}}
+    for name in COLLECTIVES["runs"]:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--collectives-run", name], env=env,
+                           capture_output=True, text=True, timeout=1800)
+        if r.returncode != 0:
+            raise SystemExit(r.stdout[-2000:] + r.stderr[-4000:])
+        run = json.loads(r.stdout.strip().splitlines()[-1])
+        print(json.dumps({k: v for k, v in run.items() if k != "rows"}),
+              flush=True)
+        doc["runs"][name] = run
+    write(COLLECTIVES_OUT, doc)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--certified", action="store_true",
@@ -648,7 +743,17 @@ def main():
     ap.add_argument("--figures", action="store_true",
                     help="record Fig. 9, Fig. 11 and Fig. 14's runs "
                          "instead")
+    ap.add_argument("--collectives", action="store_true",
+                    help="record the compiled four-card train step's "
+                         "collectives instead")
+    ap.add_argument("--collectives-run", choices=list(COLLECTIVES["runs"]),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.collectives_run:
+        print(json.dumps(_collectives_run(args.collectives_run)))
+        return None
+    if args.collectives:
+        return collectives()
     if args.figures:
         return figures()
     if args.table5:

@@ -26,7 +26,9 @@ ranks.
                difference held at `EP_TOL`)
   moe_prefill  the same at full depth in bf16: the greedy next token
                equal, the EP logits' distance from float32 within 1 +
-               `EP_BF16_SLACK` times the meshless logits' (`_moe_prefill`)
+               `EP_BF16_SLACK` times the meshless logits' (`_moe_prefill`;
+               the routing flips between the two bf16 runs and the
+               distances over the tokens they leave alone recorded)
   elastic_save the state on the world's mesh, `steps` steps, saved
                (`train.checkpoint.save`: each leaf gathered on every
                rank, rank 0 writes), then one more step on the live
@@ -38,7 +40,9 @@ ranks.
                whole step; `train_4k_summary` reads the ranks' records
                and holds them): one step under
                `launch.cost`'s trace (per-device FLOPs and collective
-               bytes; it warms up), one timed and counted (wall, peak
+               bytes, the activation's all-reduces a layer and
+               microbatch against `TRAIN_4K_ALL_REDUCES`; it warms up),
+               one timed and counted (wall, peak
                memory, flash launches), one under ``torch.profiler``
                (device busy and idle share, the NCCL kernels), then each
                collective kind's bus rate at the step's sizes and the
@@ -79,6 +83,7 @@ __all__ = ["MESH_SHAPES", "CARD_PARTS", "TRAIN_BARS", "DECODE_TOL",
            "GPIPE_TOL", "ELASTIC_TOL", "EP_TOL", "EP_BF16_SLACK",
            "world_for", "rank_cards", "rank_elastic_restore",
            "draws_equal", "bus_rate", "profile_step", "train_4k_launches",
+           "TRAIN_4K_ALL_REDUCES", "activation_collectives",
            "train_4k_summary"]
 
 MESH_SHAPES = {1: (1, 1), 2: (1, 2), 4: (2, 2)}
@@ -103,6 +108,11 @@ EP_TOL = 1e-5
 # a few extra roundings a layer beside the ~30 each layer makes, which
 # the RMS sum of independent errors puts at a few per cent
 EP_BF16_SLACK = 0.1
+# the train_4k step's all-reduces of its [B, S, d] activation a layer and
+# microbatch: Megatron's layout under remat "full" runs 6 (two a pass
+# forward, in the recompute and backward); the reference's compiled step
+# 5.06 (tests/test_torch_collectives.py)
+TRAIN_4K_ALL_REDUCES = 6.0
 
 CARD_PARTS: Dict[str, Dict[str, Any]] = {
     "train_check": {"arch": "qwen3-4b", "layers": 2, "batch": 4,
@@ -478,6 +488,22 @@ def _ep_tokens(cfg, c, dev):
                           generator=gen, device=dev) for _ in range(2)]
 
 
+def _moe_layers(p) -> tuple:
+    """([i], n): the indices of the blocks of parameter tree `p` that
+    route to experts, and the number of blocks."""
+    from ..models.common import unstack
+
+    blocks = ([p["layer0"]] if "layer0" in p else []) + unstack(p["layers"])
+    return ([i for i, lp in enumerate(blocks) if "router" in lp["ffn"]],
+            len(blocks))
+
+
+def _top2_gap(logits: torch.Tensor) -> List[float]:
+    """[B]: each row's largest logit less its second."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
 def _timed(fn: Callable, dev, out: Dict[str, Any], key: str):
     t = time.perf_counter()
     res = fn()
@@ -616,16 +642,25 @@ def _moe_prefill(rank, world, dev, c):
     to bf16) on card 0.  The EP logits' own distance from the meshless
     ones is recorded, not held: bf16 rounds the partial sums that the
     all-reduce adds, and 28 layers carry such a difference as far as
-    bf16's own error."""
+    bf16's own error.  Recorded beside them: each MoE layer's tokens
+    whose experts differ between the two bf16 runs (`_flips`), the two
+    distances over the tokens no such flip reaches (`_held`: the
+    ``*_held`` keys, None where none is left) and each run's margin
+    between its two largest logits at the last position.  A flip moves
+    a token's logits by far more than bf16's rounding, so among a few
+    dozen tokens one flip decides the all-token ratio; over the held
+    tokens the ratio is the roundings' alone."""
     from ..models import build_model
     from ..models.common import dtype_of
 
     cfg = _config(c["arch"], c.get("layers"), "bfloat16",
                   c.get("scaled", False))
+    b, s = c["batch"], c["seq"]
     out = _ep_header(world, cfg, c)
     with torch.inference_mode():
         plain, meshed = _ep_models(world, dev, cfg)
         out["draws_equal"] = draws_equal(plain.params.tree())
+        moe, blocks = _moe_layers(plain.params.tree())
         if rank != 0:
             del plain
         warm, tokens = _ep_tokens(cfg, c, dev)
@@ -634,16 +669,22 @@ def _moe_prefill(rank, world, dev, c):
         meshed.forward(warm)
         _sync(dev)
         dist.barrier()
-        with _launches(out):
+        ep = []
+        with _launches(out), _routes(ep):
             got = _timed(lambda: meshed.forward(tokens), dev, out, "wall_s")
         got = got.full_tensor()
         del meshed
         if rank == 0:
             plain.forward(warm)
             _sync(dev)
-            ref = _timed(lambda: plain.forward(tokens), dev, out,
-                         "meshless_wall_s")
+            ml = []
+            with _routes(ml):
+                ref = _timed(lambda: plain.forward(tokens), dev, out,
+                             "meshless_wall_s")
             del plain
+            flips = [_flips(m, e, cfg) for m, e in zip(ml, ep)]
+            held = _held(flips, moe, blocks - 1, b, s, dev)
+            del ml
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
             m32 = build_model(cfg.with_(dtype="float32"), device=dev,
@@ -652,12 +693,21 @@ def _moe_prefill(rank, world, dev, c):
             r32 = m32.forward(tokens)
             del m32
             e_m, e_ep = _rel_rms(ref, r32), _rel_rms(got, r32)
+            h_m = h_ep = None
+            if held.any():
+                h_m = _rel_rms(ref[held], r32[held])
+                h_ep = _rel_rms(got[held], r32[held])
             del r32
             bar = (1.0 + EP_BF16_SLACK) * e_m
             next_m, next_p = got[:, -1].argmax(-1), ref[:, -1].argmax(-1)
             out.update(
                 meshless_vs_float32=e_m, ep_vs_float32=e_ep,
                 ep_vs_float32_bar=bar, ep_over_meshless=e_ep / e_m,
+                held_tokens=int(held.sum()),
+                meshless_vs_float32_held=h_m, ep_vs_float32_held=h_ep,
+                ep_over_meshless_held=None if h_m is None else h_ep / h_m,
+                flips=[dict({k: v for k, v in f.items() if k != "mask"},
+                            layer=i) for i, f in zip(moe, flips)],
                 rel_rms=_rel_rms(got, ref),
                 max_abs_err=float((got.float() - ref.float()).abs().max()),
                 logits_max_abs=float(ref.abs().max()),
@@ -665,11 +715,13 @@ def _moe_prefill(rank, world, dev, c):
                     (got.argmax(-1) == ref.argmax(-1)).float().mean()),
                 next_token=next_m.tolist(),
                 next_token_meshless=next_p.tolist(),
+                next_margin=_top2_gap(got[:, -1]),
+                next_margin_meshless=_top2_gap(ref[:, -1]),
                 finite=bool(torch.isfinite(got).all()),
                 ok=bool(torch.equal(next_m, next_p) and e_ep <= bar
                         and torch.isfinite(got).all()))
             del ref
-        del got
+        del got, ep
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -735,6 +787,7 @@ def _train_4k(rank, world, dev, c):
     from ..configs import get_config
     from . import dryrun
     from .cells import active_param_count, plan_cell
+    from .collbreak import result_dims
     from .cost import trace_cost
     from .roofline import H100_SXM, roofline_terms
 
@@ -794,6 +847,11 @@ def _train_4k(rank, world, dev, c):
     out["profile"] = profile_step(call)
     # 4. the collectives' bus rates at the step's sizes, and the bound
     out["collectives"] = step_collectives(rows)
+    out["activation"] = [out["sequences_a_microbatch_a_data_rank"],
+                         plan.seq, cfg.d_model]
+    out["activation_collectives"] = activation_collectives(
+        ((kind, result_dims(what)[1], 1) for kind, what, *_ in rows),
+        out["activation"], MESH_SHAPES[world][1], cfg.num_layers * mb)
     # every rank times the same collectives in the same order: rank 0's
     sizes = [_largest(out["collectives"], world)]
     dist.broadcast_object_list(sizes, src=0)
@@ -973,12 +1031,29 @@ _T4_COST = ("dot_flops", "dot_bytes_flash", "collective_counts",
             "collective_wire_bytes", "total_wire_bytes", "kernel_calls")
 
 
+def activation_collectives(calls, activation: List[int], tp: int,
+                           per: float) -> Dict[str, float]:
+    """Of `calls`, (kind, result dims, calls) rows, those whose result is
+    the size of the [B, S, d] `activation` (`launch.collbreak.
+    activation_sized` over a "model" axis of `tp`): calls by kind over
+    `per` (a step's layers times its microbatches)."""
+    from .collbreak import activation_sized
+
+    out: Dict[str, float] = {}
+    for kind, dims, n in calls:
+        if activation_sized(list(dims), activation, tp):
+            out[kind] = out.get(kind, 0.0) + n / per
+    return out
+
+
 def train_4k_summary(ranks: List[Dict[str, Any]]):
     """(summary, problems) of the ranks' ``train_4k`` records: rank 0's
     plan, cost, collectives, bus rates and roofline, and each rank's
     loss, wall, launches, peak and profile; a problem for each rank whose
-    loss is not finite or whose flash launches are not
-    `train_4k_launches` of its layers and microbatches."""
+    loss is not finite, whose flash launches are not `train_4k_launches`
+    of its layers and microbatches, or whose traced step all-reduced the
+    activation more than `TRAIN_4K_ALL_REDUCES` times a layer and
+    microbatch (or recorded no count)."""
     rows, problems = [], []
     for r in ranks:
         t4 = r["train_4k"]
@@ -988,6 +1063,15 @@ def train_4k_summary(ranks: List[Dict[str, Any]]):
         if t4["flash_launches"] != want:
             problems.append(f"rank {r['rank']} train_4k flash "
                             f"{t4['flash_launches']}, not {want}")
+        acts = t4.get("activation_collectives")
+        if acts is None:
+            problems.append(f"rank {r['rank']} train_4k recorded no "
+                            f"activation collectives")
+        elif acts.get("all-reduce", 0.0) > TRAIN_4K_ALL_REDUCES:
+            problems.append(
+                f"rank {r['rank']} train_4k all-reduced the activation "
+                f"{acts['all-reduce']:.2f} times a layer and microbatch, "
+                f"above {TRAIN_4K_ALL_REDUCES}")
         rows.append({"rank": r["rank"], "card": r.get("card"),
                      **{k: t4[k] for k in _T4_RANK},
                      "profile": {k: v for k, v in t4["profile"].items()
@@ -999,6 +1083,8 @@ def train_4k_summary(ranks: List[Dict[str, Any]]):
             "sequences_a_microbatch_a_data_rank":
                 t4["sequences_a_microbatch_a_data_rank"],
             "tokens": t4["tokens"], "remat_run": t4["remat_run"],
+            "activation": t4.get("activation"),
+            "activation_collectives": t4.get("activation_collectives"),
             "cost": {k: t4["cost"][k] for k in _T4_COST},
             "collectives_top": t4["collectives"][:8],
             "bus_rates": t4["bus_rates"], "roofline": t4["roofline"],
@@ -1084,14 +1170,15 @@ def step_collectives(rows) -> List[Dict[str, Any]]:
     """`launch.cost`'s collective rows (kind, "dtype[shape]", group size,
     wire bytes, region) grouped by (kind, dtype, result bytes, group
     size): calls and wire bytes each, largest wire bytes first."""
+    from .collbreak import result_dims
     from .cost import _DTYPE_BYTES
 
     groups: Dict[tuple, Dict[str, Any]] = {}
     for kind, what, g, wire, _ in rows:
-        dtype, shape = what.split("[", 1)
+        dtype, dims = result_dims(what)
         numel = 1
-        for s in json.loads("[" + shape):
-            numel *= int(s)
+        for s in dims:
+            numel *= s
         nbytes = numel * _DTYPE_BYTES[getattr(torch, dtype)]
         key = (kind, dtype, nbytes, int(g))
         row = groups.setdefault(key, {"kind": kind, "dtype": dtype,

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..models.common import REMAT
 
-__all__ = ["breakdown", "main"]
+__all__ = ["breakdown", "result_dims", "activation_sized", "main"]
 
 
 def breakdown(rows: List[Tuple[str, str, int, float, str]], top: int = 15):
@@ -38,6 +38,29 @@ def breakdown(rows: List[Tuple[str, str, int, float, str]], top: int = 15):
         counts[key] += 1
     out = sorted(wire.items(), key=lambda kv: -kv[1])[:top]
     return out, counts, sum(wire.values())
+
+
+def result_dims(what: str) -> Tuple[str, List[int]]:
+    """(dtype, dims) of a row's ``"dtype[d0, d1, ...]"``."""
+    dtype, dims = what.split("[", 1)
+    dims = dims.rstrip("]")
+    return dtype, [int(d) for d in dims.split(",")] if dims.strip() else []
+
+
+def activation_sized(dims: List[int], activation: List[int],
+                     tp: int) -> bool:
+    """Whether a collective's result of `dims` is the [B, S, d]
+    `activation`'s size, a `tp`-th of it or `tp` times it: the residual
+    stream whole, split over "model" (a reduce-scatter's result, a
+    sequence-parallel shard) or stacked by an all-gather.  Shapes, not
+    dtypes, so that the reference's float32 CPU collectives and the
+    port's bf16 ones count alike."""
+    n, act = 1, 1
+    for d in dims:
+        n *= d
+    for d in activation:
+        act *= d
+    return n in (act // tp, act, act * tp)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -299,12 +299,16 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh=None,
     tensor the same on every rank, or a DTensor) with its vocab columns
     and multiplies the one-hot by its rows of the table; where the vocab
     is sharded the products are partial sums over those mesh dims (one
-    nonzero term a row, so the gather's bits), reduced where the next op
-    needs them.  The table's gradient is ``onehot^T g`` on each rank,
-    partial over the batch's mesh dims (another order of summation than
-    the gather's).  The one-hot never meets DTensor's sharding
-    propagation, which at 512 ranks spends seconds planning its
-    transposed [V, B * S] layouts in the backward."""
+    nonzero term a row, so the gather's bits), all-reduced at once, as
+    GSPMD reduces a contraction's output: the result is batch over the
+    dp axes and replicated elsewhere.  (Left partial, the residual stream
+    would stay partial through every block, and each norm's square would
+    reduce-scatter it, forward and backward.)  The table's gradient is
+    ``onehot^T g`` on each rank, partial over the batch's mesh dims
+    (another order of summation than the gather's).  The one-hot never
+    meets DTensor's sharding propagation, which at 512 ranks spends
+    seconds planning its transposed [V, B * S] layouts in the
+    backward."""
     if mesh is None:
         return F.embedding(tokens, table)
     from torch.distributed.tensor import Partial
@@ -319,21 +323,23 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh=None,
     table = constrain(table, mesh, P(spec[-1], None))
     vocab = set(_axes(spec[-1]))
     batch = set(a for entry in spec[:-1] for a in _axes(entry))
-    names = list(mesh_axis_sizes(mesh))
-    out = [Partial() if n in vocab else pl
-           for n, pl in zip(names, placements(P(*spec[:-1], None), mesh))]
+    sizes = mesh_axis_sizes(mesh)
+    reduced = placements(P(*spec[:-1], None), mesh)
+    out = [Partial() if n in vocab and sizes[n] > 1 else pl
+           for n, pl in zip(sizes, reduced)]
     grad = [Partial() if n in batch else pl
-            for n, pl in zip(names, table.placements)]
+            for n, pl in zip(sizes, table.placements)]
 
     def local(t, c, w):
         return (t[..., None] == c).to(w.dtype) @ w
 
-    return local_map(local, out_placements=out,
-                     in_placements=(tok.placements, cols.placements,
-                                    table.placements),
-                     in_grad_placements=(tok.placements, cols.placements,
-                                         grad),
-                     device_mesh=mesh)(tok, cols, table)
+    y = local_map(local, out_placements=out,
+                  in_placements=(tok.placements, cols.placements,
+                                 table.placements),
+                  in_grad_placements=(tok.placements, cols.placements,
+                                      grad),
+                  device_mesh=mesh)(tok, cols, table)
+    return y.redistribute(mesh, reduced)
 
 
 def _axes(entry) -> Tuple[str, ...]:

@@ -169,15 +169,27 @@ def test_cards_moe_prefill_ep_batch_one_matches_meshless(tmp_path):
 def test_cards_moe_prefill_bf16_within_its_float32_yardstick(tmp_path):
     """In bf16 the EP logits lie no further from the float32 prefill of
     the same parameter values than 1 + `EP_BF16_SLACK` times the
-    meshless bf16 logits do, as on the card."""
+    meshless bf16 logits do, over the tokens no routing flip between the
+    two bf16 runs reaches; every such flip is at a near tie, the greedy
+    next token is the meshless one's and the logits are finite.  The
+    card holds the ratio over all its 4096 tokens (the part's ``ok``),
+    where flips reach most of them and the two runs' distances both grow
+    with them.  Among these 64 tokens a flip or two decides that ratio
+    (0.2-5.2 over token seeds 0-20, scripts/ep_bf16_yardstick.py), so
+    here it is taken over the tokens the flips leave alone."""
     from repro_torch.launch.cards import EP_BF16_SLACK
 
     row = _cards(tmp_path, "moe_prefill")[0]["moe_prefill"]
     assert row["dtype"] == "bfloat16"
+    assert row["finite"]
+    assert row["next_token"] == row["next_token_meshless"], row
     assert row["ep_vs_float32_bar"] == pytest.approx(
         (1 + EP_BF16_SLACK) * row["meshless_vs_float32"], rel=1e-12)
-    assert row["ok"] and row["ep_vs_float32"] <= row["ep_vs_float32_bar"], \
-        row
+    assert not any(f["unexplained"] for f in row["flips"]), row["flips"]
+    size = SMALL["moe_prefill"]
+    assert 0 < row["held_tokens"] <= size["batch"] * size["seq"]
+    assert row["ep_vs_float32_held"] <= (1 + EP_BF16_SLACK) \
+        * row["meshless_vs_float32_held"], row
 
 
 def test_cards_moe_prefill_bf16_batch_one_on_size_one_data_axis(tmp_path):
@@ -273,6 +285,7 @@ def test_train_4k_summary_holds_each_ranks_loss_and_launches():
                               "sequences_a_microbatch_a_data_rank")}
         t4.update(loss=loss, layers=36, microbatches_run=2,
                   flash_launches=launches, collectives=[{}] * 10,
+                  activation_collectives={"all-reduce": 5.06},
                   cost={k: 0 for k in (
                       "dot_flops", "dot_bytes_flash", "collective_counts",
                       "collective_wire_bytes", "total_wire_bytes",
@@ -290,6 +303,61 @@ def test_train_4k_summary_holds_each_ranks_loss_and_launches():
     assert [r["rank"] for r in summary["by_rank"]] == [0, 1, 2]
     assert summary["by_rank"][0]["profile"] == {"wall_ms": 1.0}
     assert summary["by_rank"][0]["nccl"] == {"x": {"calls": 1}}
+
+
+def test_train_4k_summary_holds_the_activation_all_reduces():
+    """The traced step's all-reduces of the [B, S, d] activation a layer
+    and microbatch, counted from `launch.cost`'s rows by
+    `activation_collectives`, and held by `train_4k_summary` at
+    `TRAIN_4K_ALL_REDUCES`: a rank above it, or one that recorded no
+    count, is a problem; a rank at the reference's 5.06 is not."""
+    from repro_torch.launch.cards import (TRAIN_4K_ALL_REDUCES,
+                                          activation_collectives,
+                                          train_4k_launches,
+                                          train_4k_summary)
+
+    act = [8, 4096, 2560]
+    rows = [("all-reduce", [8, 4096, 2560], 5),
+            ("all-reduce", [8, 4096, 2560], 3),
+            ("reduce-scatter", [4, 4096, 2560], 1),
+            ("all-gather", [16, 4096, 2560], 1),
+            ("all-gather", [2560, 4864], 1),
+            ("all-reduce", [2560, 75968], 1),
+            ("all-reduce", [], 1)]
+    assert activation_collectives(rows, act, 2, 2) == {
+        "all-reduce": 4.0, "reduce-scatter": 0.5, "all-gather": 0.5}
+    assert TRAIN_4K_ALL_REDUCES == 6.0
+
+    def rec(rank, acts):
+        t4 = {k: 0 for k in ("wall_s", "tokens", "tokens_per_s",
+                              "flash_devices", "max_memory_allocated",
+                              "peak_of_plan", "state_bytes", "build_s",
+                              "traced_wall_s", "link_rate_bytes_per_s",
+                              "wall_of_bound", "plan", "mesh",
+                              "remat_run", "bus_rates", "roofline",
+                              "model_flops", "collectives",
+                              "sequences_a_microbatch_a_data_rank")}
+        t4.update(loss=1.5, layers=36, microbatches_run=2,
+                  flash_launches=train_4k_launches(36, 2),
+                  collectives=[], activation=act,
+                  cost={k: 0 for k in (
+                      "dot_flops", "dot_bytes_flash", "collective_counts",
+                      "collective_wire_bytes", "total_wire_bytes",
+                      "kernel_calls")},
+                  profile={"wall_ms": 1.0, "nccl": {}})
+        if acts is not None:
+            t4["activation_collectives"] = acts
+        return {"rank": rank, "card": "H100", "train_4k": t4}
+
+    summary, problems = train_4k_summary([
+        rec(0, {"all-reduce": 5.06}), rec(1, {"all-reduce": 6.0}),
+        rec(2, {"all-reduce": 18.2, "reduce-scatter": 8.09}),
+        rec(3, None)])
+    assert [p.split(" train_4k")[0] for p in problems] == ["rank 2",
+                                                           "rank 3"]
+    assert "18.20 times a layer and microbatch" in problems[0]
+    assert summary["activation_collectives"] == {"all-reduce": 5.06}
+    assert summary["activation"] == act
 
 
 def test_cards_gpipe_matches_in_order(tmp_path):
