@@ -19,7 +19,9 @@ a link-failure transient) at PF(31), the structural-analysis path (the
 §IV-D routing table, the §IX diameters under link failure, the blocked
 routing on the device BFS) at PF(31) and at the repo's PF(79) scale tier
 (6321 routers), the reference's scale tier through the blocked routing
-stack (PF(79) and PF(157) saturations, the PF(79) packet point), and the
+stack (PF(79) and PF(157) saturations, the PF(79) packet point), the
+paper's Fig. 10 size sweep (PF(13) .. PF(43)), Fig. 8's PF(79) point and
+Fig. 15's measured cost ratios, and the
 prefill and serve paths of the dense transformer
 (Gemma2-9B), the MoE family (deepseek-moe-16b, qwen2-moe-a2.7b), the
 Griffin hybrid (recurrentgemma-9b), the SSM (falcon-mamba-7b) and the
@@ -248,6 +250,43 @@ development run that then fails for the kernels it did not launch):
              bypasses the kernel, so that shape is timed off the path).
              The scale path's launches go on the kernel line as
              `launches_scale`
+  sizes      the paper's last device figures, the grid read from
+             tests/fixtures/torch_port_sizes_reference.json's `config`,
+             every solve on the card.  Fig. 15 (bench_fig15_cost.py):
+             fig8's PF(13), SF(9), DF(6, 3) and FT(8, 3) (traffic on the
+             fat tree's leaf switches), ugal_pf (ecmp on the fat tree) at
+             uniform and random_perm, k_candidates 10, tol 0.01, and the
+             cost ratios from the benchmark's PORTS, each inside the
+             interval its held saturations allow.  Fig. 8's large point
+             (`_run_large`): PF(79) on the scale phase's blocked routing,
+             p = 40, uniform and random_perm at 60,000 flows, min and
+             ugal_pf, k_candidates 10, tol 0.01.  Fig. 10
+             (bench_fig10_sizes.py) at PF(13 .. 43), p = (q + 1) // 2,
+             uniform, ugal_pf (150,000 flows) then min (all pairs, up to
+             3.58M flows at PF(43)), k_candidates 8, tol 0.02
+             (`SIZES_PHASE_MODES`, `SIZES_PHASE_POINTS`; SF(23), SF(27),
+             PS(7, 49) and the large tier PS(9, 61), SF(43), PF(79),
+             JF(6321, 80) run in scripts/sizes_cards.py).  Bars: graphs, routing tables,
+             patterns and FlowPaths equal to the fixture's sha256;
+             oblivious saturations equal, or one step above where the
+             reference refused that load by a tie, its max link
+             utilization there within TIE_REL of 1 and the card's too
+             (`oblivious_bar`, `tie_loads`: PF(13), PF(25) and PF(43)
+             min, whose links are filled exactly to capacity at load 1);
+             adaptive ones above 0,
+             within 0.05 and within one bisection step of the
+             reference's or of its ±1-ulp band where the fixture has one
+             (`figure_bars`; Fig. 15's PF and SF random_perm);
+             ugal_pf truncation gaps at the reference's saturation in the
+             reference's band widened by the figures fixture's
+             `truncation_factor` each way; path-cost launches iters + the
+             probes' schedule a saturation, iters a gap.  Each run's
+             [F, K, L], launch plan, link-load route (`loads`) and stage
+             seconds; then path_costs at the largest PolarFly ugal_pf
+             shape and the longest paths' against its plain version (bit
+             for bit) and `embedding_bag`, timed beside its bytes bound.
+             The kernel line's path_costs entry takes `launches_sizes`
+             (the run fails at 0) and `sizes_shapes`
   model      Gemma2-9B at its published widths (d_model 3584, 16/8 heads
              of 256, d_ff 14336, vocab 256000, window 4096, softcaps
              50/30), bf16, random parameters from seed 0, all 42 layers
@@ -524,6 +563,11 @@ TABLE5_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
 # PS(9, 61) throughput point; its `config` and the JAX package's results
 FIGURES_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                "torch_port_figures_reference.json")
+# the paper's last device figures: Fig. 10's size sweep with its large
+# tier, Fig. 8's PF(79) point and Fig. 15's cost ratios; its `config` and
+# the JAX package's results
+SIZES_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                             "torch_port_sizes_reference.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # Issue rates in lane-instructions a second, 132 SMs x lanes x 1.98 GHz.
@@ -2224,6 +2268,36 @@ def table5_traffic(g):
     return p, hosts
 
 
+def fig10_p(builder, args, g, blocked):
+    """bench_fig10_sizes.py's endpoints a router: (q + 1) // 2 on a
+    PolarFly of its sweep, radix // 2 on every other graph and on the
+    blocked tier."""
+    if builder == "build_polarfly" and not blocked:
+        return (args[0] + 1) // 2
+    return g.params["radix"] // 2
+
+
+def fig10_max_flows(c, mode, n):
+    """bench_fig10_sizes.py's flow sample: `c["max_flows"]` (the fixture's
+    fig10 `config`) for `mode`, the adaptive one halved past
+    `above_n` routers."""
+    mf = c["max_flows"]
+    if mode == "min":
+        return mf["min"]
+    return mf["adaptive"] if n <= mf["above_n"] else mf["adaptive_above"]
+
+
+def fig15_ratios(sats, ports, floor):
+    """bench_fig15_cost.py's cost per node normalised to PolarFly: {traffic:
+    {topology: (ports / max(sat, floor)) / PF's}} from `sats`, {(topology,
+    traffic): saturation}."""
+    out = {}
+    for (name, key), sat in sats.items():
+        base = ports["PF"] / max(sats["PF", key], floor)
+        out.setdefault(key, {})[name] = ports[name] / max(sat, floor) / base
+    return out
+
+
 def table5_bar(run, step, band=None):
     """(lo, hi) that an adaptive saturation must lie in, besides being
     above 0: the reference's `run["saturation"]`, or the least and greatest
@@ -2479,7 +2553,13 @@ def phase_scale(torch, state):
         "packet_peak_bytes": packet_peak_bytes(wl),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "card_memory": torch.cuda.get_device_properties(0).total_memory})
-    del wl, res, again, rt79, g79
+    # the sizes phase's Fig. 8 point runs on this routing (k does not
+    # enter it)
+    state["pf79_routed"] = (g79, rt79, {
+        "routers": g79.n, "radix": g79.params["radix"],
+        "links": g79.num_edges, "diameter": rt79.diameter, "blocked": True,
+        "graph_s": graph_s, "routing_s": routing_s})
+    del wl, res, again
     out[key] = row
     emit({"phase": "scale.run", "point": key, **row})
 
@@ -2639,17 +2719,18 @@ def band(run, quantity, moves=None):
 
 
 def figure_bars(run, step, factor):
-    """{quantity: (lo, hi)} that a Fig. 9 / Fig. 11 adaptive run's
+    """{quantity: (lo, hi)} that a Fig. 9, 10, 11 or 8 adaptive run's
     readings must lie in: the saturation in its band widened by one
     bisection `step` (`table5_bar`), the mean latency in its band widened
     by LATENCY_REL, the truncation gap in its band over the one-ulp moves
-    widened by `factor` (the fixture's `truncation_factor`, the widest
-    spread of a gap under a one-ulp move) each way."""
+    widened by `factor` (the figures fixture's `truncation_factor`, the
+    widest spread of a gap under a one-ulp move) each way."""
     bars = {"saturation": table5_bar(run, step, band(run, "saturation"))}
     if "latency_load" in run:
         lo, hi = band(run, "mean_latency")
         bars["mean_latency"] = (lo * (1 - LATENCY_REL),
                                 hi * (1 + LATENCY_REL))
+    if "truncation_error" in run:
         lo, hi = band(run, "truncation_error", moves=1)
         bars["truncation_error"] = (lo / factor, hi * factor)
     return bars
@@ -2881,6 +2962,337 @@ def phase_figures(torch, state):
         raise AssertionError(f"figures failed their checks: {problems}")
     return out
 
+
+# the Fig. 10 runs the `sizes` phase drives after Fig. 15 and Fig. 8's
+# PF(79) point, each mode at every point in turn, within about 90 s on
+# the card host; scripts/sizes_cards.py drives every run of the fixture
+SIZES_PHASE_MODES = ("ugal_pf", "min")
+SIZES_PHASE_POINTS = ("pf13", "pf19", "pf25", "pf31", "pf37", "pf43")
+
+
+def sizes_graph(builder, args, topologies, build_polarfly):
+    """(graph, its PolarFly or None) of a `[builder, arguments]` entry,
+    built by the package whose `topologies` module and `build_polarfly`
+    are passed."""
+    if builder == "build_polarfly":
+        pf = build_polarfly(*args)
+        return pf.graph, pf
+    return figure_graph(builder, args, topologies, build_polarfly), None
+
+
+def sizes_routing(torch, builder, args, blocked):
+    """(graph, routing, row) of a Fig. 10 / Fig. 8 graph: `build_routing(g,
+    pf)`, or the blocked stack with every BFS sweep on the cards
+    (`backend="sharded"`), as the scale phase routes PF(79)."""
+    from repro_torch.core import topologies
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.core.routing import build_blocked_routing, build_routing
+
+    (g, pf), graph_s = synced(torch, lambda: sizes_graph(
+        builder, args, topologies, build_polarfly))
+    if blocked:
+        rt, routing_s = synced(torch, lambda: build_blocked_routing(
+            g, backend="sharded", devices=torch.cuda.device_count()))
+    else:
+        rt, routing_s = synced(torch, lambda: build_routing(g, pf))
+    return g, rt, {"routers": g.n, "radix": g.params["radix"],
+                   "links": g.num_edges, "diameter": int(rt.diameter),
+                   "blocked": blocked, "graph_s": graph_s,
+                   "routing_s": routing_s}
+
+
+def held_graph(check, g, rt, top, want, label):
+    """`top`'s sizes, the graph's hash and the routing's (its tables'
+    hashes, or a blocked routing's destination block) against the fixture's
+    `want`; sets `top["graph_equal"]`."""
+    keys = [k for k in ("routers", "radix", "links", "hosts", "p",
+                        "diameter") if k in want]
+    ok = ({k: top[k] for k in keys} == {k: want[k] for k in keys}
+          and graph_hash(g) == want["graph_sha256"])
+    if "routing_sha256" in want:
+        ok = ok and routing_hashes(rt) == want["routing_sha256"]
+    else:
+        top["dest_block"] = rt.block
+        ok = ok and rt.block == want["dest_block"]
+    top["graph_equal"] = check(ok, f"{label} graph, routing or sizes")
+
+
+TIE_REL = 1e-6  # a link at capacity up to float32 summation: 8 ulps of 1
+
+
+def tie_loads(want):
+    """The loads of `want["max_util_at"]` (the reference's max link
+    utilization at its saturation and one bisection step above,
+    scripts/table5_sensitivity.py --sizes) where it is within TIE_REL of
+    1: a link filled exactly to capacity that float32 sums in another
+    order put on either side of it."""
+    return [x for x, u in want.get("max_util_at", [])
+            if abs(u - 1.0) <= TIE_REL]
+
+
+def oblivious_bar(want, step):
+    """(lo, hi) an oblivious saturation must lie in: the reference's, or
+    the bisection step next to it where the reference decided that step
+    by a tie (`tie_loads`)."""
+    ref, ties = want["saturation"], tie_loads(want)
+    up = min(ref + step, 1.0)
+    return (ref - step if ref in ties else ref, up if up in ties else ref)
+
+
+def held_sized_run(torch, check, rt, pat, mode, c, want, label, factor):
+    """(FlowPaths, row) of one run of the sizes fixture on the card:
+    `held_paths`, `held_saturation` (an adaptive one inside `figure_bars`'
+    saturation bar, an oblivious one inside `oblivious_bar`, with the
+    card's own max link utilization within TIE_REL of 1 at each load where
+    that bar admits a tie), and where the reference measured it the
+    truncation gap at the reference's saturation, inside its bar, with
+    `iters` path-cost launches."""
+    import numpy as np
+
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.simulation import evaluate_load, truncation_error
+
+    it = c["iters"][mode]
+    fp, row = held_paths(torch, check, rt, pat, mode, c, want, label)
+    step = bisection_step(c["tol"])
+    bars = (figure_bars(want, step, factor) if mode in ("ugal", "ugal_pf")
+            else {"saturation": oblivious_bar(want, step)})
+    row = {"mode": mode, "iters": it, **row,
+           **held_saturation(torch, check, fp, c["tol"], it, c["engine"],
+                             want, label, bars.get("saturation"))}
+    util = dict(want.get("max_util_at", []))
+    row["ties"] = []
+    for load in tie_loads(want):
+        got = float(evaluate_load(fp, load, it, device="cuda").max_util)
+        row["ties"].append({
+            "load": load, "max_util": got, "reference": util[load],
+            "ok": check(abs(got - 1.0) <= TIE_REL,
+                        f"{label} max link utilization {got} at load "
+                        f"{load}, not within {TIE_REL} of 1 (reference "
+                        f"{util[load]})")})
+    if "truncation_error" in want:
+        before = ops.LAUNCHES
+        gap, wall = synced(torch, lambda: truncation_error(
+            fp, want["saturation"], it, device="cuda"))
+        launches = ops.LAUNCHES - before
+        lo, hi = bars["truncation_error"]
+        row["truncation"] = {
+            "offered": want["saturation"], "gap": gap,
+            "reference": want["truncation_error"], "bar": [lo, hi],
+            "wall_s": wall, "launches": launches,
+            "ok": check(np.isfinite(gap) and gap >= 0.0 and lo <= gap <= hi
+                        and launches == it,
+                        f"{label} truncation gap {gap} (reference "
+                        f"{want['truncation_error']}, bar {[lo, hi]}), "
+                        f"launches {launches} (want {it})")}
+    return fp, row
+
+
+def fig15_ratio_bars(bars, ports, floor):
+    """{traffic: {topology: (lo, hi)}}: the interval each Fig. 15 cost
+    ratio may lie in when each saturation lies in its bar (`bars`,
+    {(topology, traffic): (lo, hi)}); PolarFly's own ratio is 1."""
+    out = {}
+    for (name, key), (lo, hi) in bars.items():
+        pf_lo, pf_hi = bars["PF", key]
+        scale = ports[name] / ports["PF"]
+        out.setdefault(key, {})[name] = (1.0, 1.0) if name == "PF" else (
+            scale * max(pf_lo, floor) / max(hi, floor),
+            scale * max(pf_hi, floor) / max(lo, floor))
+    return out
+
+
+def sizes_fig15(torch, check, fixture, factor):
+    """Fig. 15 on the card: fig8's q = 13-class graphs under ugal_pf (ecmp
+    on the fat tree) at uniform and random_perm, each held by
+    `held_sized_run`, then the cost ratios, each inside the interval its
+    saturations' bars allow.  Returns (record, {label: FlowPaths} of the adaptive
+    runs)."""
+    from repro_torch.core import topologies
+    from repro_torch.core.polarfly import build_polarfly
+    from repro_torch.core.routing import build_routing
+    from repro_torch.simulation import make_pattern
+
+    c, ref = fixture["config"]["fig15"], fixture["fig15"]
+    out, sats, bars, fps = {"topologies": {}}, {}, {}, {}
+    for name, (builder, args) in c["graphs"].items():
+        want, mode = ref["topologies"][name], c["modes"][name]
+        (g, pf), graph_s = synced(torch, lambda: sizes_graph(
+            builder, args, topologies, build_polarfly))
+        rt, routing_s = synced(torch, lambda: build_routing(g, pf))
+        p, hosts = table5_traffic(g)
+        top = {"routers": g.n, "radix": g.params["radix"], "p": p,
+               "hosts": g.n if hosts is None else len(hosts),
+               "diameter": int(rt.diameter), "graph_s": graph_s,
+               "routing_s": routing_s, "runs": []}
+        held_graph(check, g, rt, top, want, f"fig15 {name}")
+        runs = {r["traffic"]: r for r in want["runs"]}
+        for key, pattern in c["patterns"].items():
+            label = f"fig15 {name} {key}"
+            pat, pattern_s = synced(torch, lambda: make_pattern(
+                pattern, rt, p=p, hosts=hosts, seed=c["seed"]))
+            fp, row = held_sized_run(torch, check, rt, pat, mode, c,
+                                     runs[key], label, factor)
+            row = {"figure": "fig15", "topology": name, "traffic": key,
+                   "pattern": pattern, "pattern_s": pattern_s, **row}
+            sats[name, key], bars[name, key] = row["saturation"], row["bar"]
+            top["runs"].append(row)
+            emit({"phase": "sizes.run", **row})
+            if mode in ("ugal", "ugal_pf"):
+                fps[label] = fp
+        out["topologies"][name] = top
+    ratios = fig15_ratios(sats, c["ports"], c["sat_floor"])
+    ratio_bars = fig15_ratio_bars(bars, c["ports"], c["sat_floor"])
+    out["ratios"] = {key: {name: {
+        "port": v, "reference": ref["ratios"][key][name],
+        "bar": list(ratio_bars[key][name]),
+        "ok": check(ratio_bars[key][name][0] <= v <= ratio_bars[key][name][1],
+                    f"fig15 {name} {key} cost ratio {v} (bar "
+                    f"{ratio_bars[key][name]})")}
+        for name, v in row_.items()} for key, row_ in ratios.items()}
+    out["paper_ft"] = c["paper_ft"]
+    emit({"phase": "sizes.fig15_ratios", "ratios": out["ratios"],
+          "paper_ft": c["paper_ft"]})
+    return out, fps
+
+
+def sizes_fig8_large(torch, check, fixture, factor, routed=None):
+    """Fig. 8's PF(79) point on the card: the blocked routing (`routed`,
+    (graph, routing, row), where the scale phase built it), p = 40,
+    uniform and random_perm at 60,000 flows, min and ugal_pf, each held by
+    `held_sized_run`.  Returns (record, {label: FlowPaths} of the adaptive
+    runs)."""
+    from repro_torch.simulation import make_pattern
+
+    c, want = fixture["config"]["fig8_large"], fixture["fig8_large"]
+    g, rt, top = routed or sizes_routing(torch, *c["graph"], True)
+    top = {**top, "p": g.params.get("radix", 80) // 2, "runs": []}
+    held_graph(check, g, rt, top, want, "fig8 PF(79)")
+    runs = {(r["pattern"], r["mode"]): r for r in want["runs"]}
+    fps = {}
+    for pattern in c["patterns"]:
+        pat, pattern_s = synced(torch, lambda: make_pattern(
+            pattern, rt, p=top["p"], seed=c["seed"],
+            max_flows=c["max_flows"]))
+        for mode in c["modes"]:
+            label = f"fig8 PF(79) {pattern} {mode}"
+            fp, row = held_sized_run(torch, check, rt, pat, mode, c,
+                                     runs[pattern, mode], label, factor)
+            row = {"figure": "fig8_large", "pattern": pattern,
+                   "pattern_s": pattern_s, **row}
+            top["runs"].append(row)
+            emit({"phase": "sizes.run", **row})
+            if mode in ("ugal", "ugal_pf"):
+                fps[label] = fp
+    return top, fps
+
+
+def sizes_fig10_point(torch, check, fixture, name, modes, factor,
+                      routed=None):
+    """Fig. 10's point `name` on the card under `modes`: routed as the
+    benchmark routes it (`routed`, (graph, routing, row), where built
+    already), uniform at `fig10_p` endpoints a router and
+    `fig10_max_flows` flows, each run held by `held_sized_run`.  Returns
+    (record, {label: FlowPaths} of the adaptive runs, (graph, routing,
+    row))."""
+    from repro_torch.simulation import make_pattern
+
+    c, want = fixture["config"]["fig10"], fixture["fig10"][name]
+    builder, args, blocked = c["points"][name]
+    routed = routed or sizes_routing(torch, builder, args, blocked)
+    g, rt, top = routed
+    top = {**top, "p": fig10_p(builder, args, g, blocked), "runs": []}
+    held_graph(check, g, rt, top, want, f"fig10 {name}")
+    runs = {r["mode"]: r for r in want["runs"]}
+    fps = {}
+    for mode in modes:
+        label = f"fig10 {name} {mode}"
+        mf = fig10_max_flows(c, mode, g.n)
+        pat, pattern_s = synced(torch, lambda: make_pattern(
+            "uniform", rt, p=top["p"], seed=c["seed"], max_flows=mf))
+        fp, row = held_sized_run(torch, check, rt, pat, mode, c, runs[mode],
+                                 label, factor)
+        row = {"figure": "fig10", "point": name, "max_flows": mf,
+               "pattern_s": pattern_s, **row}
+        top["runs"].append(row)
+        emit({"phase": "sizes.run", **row})
+        if mode in ("ugal", "ugal_pf"):
+            fps[label] = fp
+        del fp
+    return top, fps, routed
+
+
+def sizes_shape_launches(records, shape):
+    """The path-cost launches the sizes runs in `records` made at `shape`
+    ([F, K, L]): saturations and truncation gaps of that shape summed."""
+    return sum(r.get("launches", 0) + r.get("truncation", {}).get(
+        "launches", 0) for r in records
+        if [r["flows"], r["candidates"], r["path_len"]] == shape)
+
+
+def sizes_factor():
+    """The truncation gap's widening: the figures fixture's
+    `truncation_factor`, the widest spread of a Fig. 9 gap under a one-ulp
+    move of the demand."""
+    with open(FIGURES_FIXTURE) as fh:
+        return json.load(fh)["truncation_factor"]
+
+
+def phase_sizes(torch, state):
+    """The paper's last device figures on the card, held against
+    tests/fixtures/torch_port_sizes_reference.json (the JAX package's
+    run), whose `config` gives the grid: Fig. 15 whole, Fig. 8's PF(79)
+    point whole (on the scale phase's PF(79) routing when it ran), and
+    Fig. 10's `SIZES_PHASE_MODES` at `SIZES_PHASE_POINTS`
+    (scripts/sizes_cards.py runs every one).  The path-cost count starts at 0 here and is read before
+    the kernel is held and timed at the largest PolarFly ugal_pf shape and
+    the longest paths' shape the phase ran."""
+    from repro_torch.kernels.minplus import ops
+
+    with open(SIZES_FIXTURE) as fh:
+        fixture = json.load(fh)
+    factor = sizes_factor()
+    problems, records, fps = [], [], {}
+    check = checker(problems)
+    out = {"truncation_factor": factor}
+
+    ops.LAUNCHES = 0  # the sizes path's count starts here
+    out["fig15"], got = sizes_fig15(torch, check, fixture, factor)
+    fps.update(got)
+    records += [r for t in out["fig15"]["topologies"].values()
+                for r in t["runs"]]
+    out["fig8_large"], got = sizes_fig8_large(
+        torch, check, fixture, factor, state.pop("pf79_routed", None))
+    fps.update(got)
+    records += out["fig8_large"]["runs"]
+    out["fig10"], routed = {}, {}
+    for mode in SIZES_PHASE_MODES:
+        for name in SIZES_PHASE_POINTS:
+            top, got, routed[name] = sizes_fig10_point(
+                torch, check, fixture, name, [mode], factor,
+                routed.get(name))
+            fps.update(got)
+            records += top["runs"]
+            out["fig10"][f"{name} {mode}"] = top
+    del routed
+    state["sizes_launches"] = ops.LAUNCHES  # the sizes path's, read here
+
+    # path_costs at the largest PolarFly ugal_pf shape and at the longest
+    # paths' (launches here are not the path's)
+    pf = [k for k in fps if k.startswith(("fig10 pf", "fig8 PF"))]
+    pick = {max(pf, key=lambda k: fps[k].edges.size),
+            max(fps, key=lambda k: (fps[k].edges.shape[2],
+                                    fps[k].edges.size))}
+    shapes = [kernel_path_costs_at(torch, k, fps[k], sizes_shape_launches(
+        records, list(fps[k].edges.shape))) for k in sorted(pick)]
+    del fps
+    state["path_costs_sizes_shapes"] = shapes
+    out["path_costs"] = shapes
+    out["path_costs_launches"] = state["sizes_launches"]
+    emit({"phase": "sizes.path_costs", "shapes": shapes})
+    if problems:
+        raise AssertionError(f"sizes failed their checks: {problems}")
+    return out
 
 def scope_device_ms(events, scopes):
     """{name: device ms of the kernels and copies that ran inside the
@@ -4713,6 +5125,7 @@ def main():
               ("packet", phase_packet, (torch, state)),
               ("analysis", phase_analysis, (torch, state)),
               ("scale", phase_scale, (torch, state)),
+              ("sizes", phase_sizes, (torch, state)),
               ("model", phase_model, (torch, state)),
               ("moe", phase_moe, (torch, state)),
               ("hybrid", phase_hybrid, (torch, state)),
@@ -4777,6 +5190,8 @@ def main():
             k["table5_shapes"] = state.get("path_costs_table5_shapes")
             k["launches_figures"] = state.get("figures_launches", 0)
             k["figures_shapes"] = state.get("path_costs_figures_shapes")
+            k["launches_sizes"] = state.get("sizes_launches", 0)
+            k["sizes_shapes"] = state.get("path_costs_sizes_shapes")
     smoke.record["kernels"] = kernels
     smi = nvidia_smi()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -4790,6 +5205,7 @@ def main():
     # route (the analysis phase checks it stays at 0), and the kernels
     # phase holds and times it
     on_path = [n for name, n in launches.items() if name != "minplus"]
+    on_path.append(state.get("sizes_launches", 0))  # the sizes path's
     if (smoke.failed or len(kernels) != len(launches)
             or not all(on_path)):
         print(f"chip_smoke: failed phases: {smoke.failed}", file=sys.stderr)

@@ -119,6 +119,44 @@ reference's runs with the demand moved up to `ulp_moves` ulps each way.
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --table5
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --figures
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --collectives
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py --sizes [--parts ...]
+
+With `--sizes` it records the paper's last device figures that the smoke
+script's `sizes` phase and scripts/sizes_cards.py hold the port against,
+the grid in `SIZES` (the one source, read back from the fixture's
+`config`):
+
+* Fig. 10, `benchmarks/bench_fig10_sizes.py`: PF(13, 19, 25, 31, 37, 43),
+  SF(23), SF(27) and PS(7, 49) routed by `build_routing(g, pf)`, and the
+  BENCH_LARGE tier PS(9, 61), SF(43), PF(79) and JF(6321, 80) through
+  `build_blocked_routing`; uniform traffic, p = (q + 1) // 2 on PolarFly
+  and radix // 2 elsewhere (`chip_smoke.fig10_p`), seed 0, min (up to
+  3,600,000 sampled flows) and ugal_pf (150,000 flows up to 3000 routers,
+  60,000 above), `k_candidates=8`, `saturation_throughput(tol=0.02,
+  engine="batched")` at 250 / 1500 steps, and each ugal_pf run's
+  `truncation_error` at its saturation.  PF(79) ugal_pf's saturation is
+  the scale fixture's `saturation_fig10` (the same run), not solved again;
+  its truncation gap is measured here;
+* Fig. 8's large point, `bench_fig8_saturation.py`'s `_run_large`: PF(79)
+  through `build_blocked_routing`, p = 40, uniform and random_perm at
+  60,000 flows, min and ugal_pf, `k_candidates=10`, tol 0.01, each
+  ugal_pf run's truncation gap;
+* Fig. 15, `bench_fig15_cost.py`: fig8's q = 13-class PF(13), SF(9),
+  DF(6, 3) and FT(8, 3) (traffic on the fat tree's leaf switches,
+  `chip_smoke.table5_traffic`), ugal_pf (ecmp on the fat tree) at uniform
+  and random_perm, `k_candidates=10`, tol 0.01, and the cost ratios the
+  benchmark prints from `PORTS`.
+
+Each graph holds its sha256 (`graph_hash`), n, radix, p and diameter,
+each dense routing its tables' sha256, each run its saturation, [F, K, L],
+link count and pattern and FlowPaths sha256.  Parts run on their own
+with `--parts` (`fig15`, `fig8_large`, `fig10.<point>`), several
+processes at once if wanted: each merges its part into the fixture under
+a lock on the file.  About 85 minutes of JAX on the CPU in one process,
+22 minutes in five at once.
+Writes `tests/fixtures/torch_port_sizes_reference.json`; then
+`scripts/table5_sensitivity.py --sizes --write` adds bands to the runs
+that need them.
 
 With `--collectives` it records the collectives of the reference's
 compiled four-card train step that tests/test_torch_collectives.py holds
@@ -140,6 +178,7 @@ in float32.  About half a minute.  Writes
 """
 import argparse
 import dataclasses
+import fcntl
 import hashlib
 import json
 import os
@@ -155,9 +194,10 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from chip_smoke import (fig9_load, figure_graph,  # noqa: E402
-                        flow_hashes, graph_hash, routing_hashes,
-                        sweep_dests, table5_traffic)
+from chip_smoke import (fig9_load, fig10_max_flows,  # noqa: E402
+                        fig10_p, fig15_ratios, figure_graph, flow_hashes,
+                        graph_hash, routing_hashes, sizes_graph, sweep_dests,
+                        table5_traffic)
 
 from repro.core import topologies  # noqa: E402
 from repro.core.expansion import expand  # noqa: E402
@@ -167,6 +207,7 @@ from repro.core.polarfly import build_polarfly  # noqa: E402
 from repro.core.topologies import paper_table5_configs  # noqa: E402
 from repro.core.routing import (build_blocked_routing,  # noqa: E402
                                 build_routing, destination_blocks)
+from benchmarks.bench_fig15_cost import PAPER_FT, PORTS  # noqa: E402
 from repro.simulation import (BurstSchedule,  # noqa: E402
                               build_failure_workload, build_flow_paths,
                               latency_curve, make_pattern, make_workload,
@@ -278,6 +319,58 @@ COLLECTIVES = {"arch": "qwen3-4b", "shape": "train_4k",
                "runs": {"tp2d": False, "tp2d_sp": True}}
 COLLECTIVES_OUT = os.path.join(ROOT, "tests", "fixtures",
                                "torch_port_collectives_reference.json")
+# the paper's last device figures: fig10's run() with its BENCH_LARGE tier,
+# fig8's `_run_large` PF(79) point and fig15's measured cost ratios
+SIZES = {
+    "fig10": {"seed": 0, "k_candidates": 8, "tol": 0.02, "engine": "batched",
+              "modes": ["min", "ugal_pf"],
+              "iters": {"min": 250, "ugal_pf": 1500},
+              # min samples up to 3.6M flows; ugal_pf 150k up to 3000
+              # routers and 60k above (`chip_smoke.fig10_max_flows`)
+              "max_flows": {"min": 3_600_000, "adaptive": 150_000,
+                            "adaptive_above": 60_000, "above_n": 3000},
+              # name: [builder, arguments, blocked]; p is
+              # `chip_smoke.fig10_p`
+              "points": {
+                  "pf13": ["build_polarfly", [13], False],
+                  "pf19": ["build_polarfly", [19], False],
+                  "pf25": ["build_polarfly", [25], False],
+                  "pf31": ["build_polarfly", [31], False],
+                  "pf37": ["build_polarfly", [37], False],
+                  "pf43": ["build_polarfly", [43], False],
+                  "sf23": ["build_slimfly", [23], False],
+                  "sf27": ["build_slimfly", [27], False],
+                  "ps7x49": ["build_polarstar", [7, 49], False],
+                  "ps9x61": ["build_polarstar", [9, 61], True],
+                  "sf43": ["build_slimfly", [43], True],
+                  "pf79": ["build_polarfly", [79], True],
+                  "jf6321": ["build_jellyfish", [6321, 80, 0], True]},
+              # runs whose saturation another fixture holds: [file, point,
+              # key] (PF(79) ugal_pf is the scale tier's fig10 reading)
+              "saturations_from": {
+                  "pf79.ugal_pf": ["torch_port_scale_reference.json",
+                                   "pf79_ugal_pf", "saturation_fig10"]}},
+    "fig8_large": {"graph": ["build_polarfly", [79]], "seed": 0,
+                   "patterns": ["uniform", "random_perm"],
+                   "max_flows": 60_000, "modes": ["min", "ugal_pf"],
+                   "k_candidates": 10, "tol": 0.01, "engine": "batched",
+                   "iters": {"min": 250, "ugal_pf": 1500}},
+    "fig15": {"seed": 0,
+              # fig8's q = 13-class CONFIGS that fig15's PORTS names
+              "graphs": {"PF": ["build_polarfly", [13]],
+                         "SF": ["build_slimfly", [9]],
+                         "DF1": ["build_dragonfly", [6, 3]],
+                         "FT": ["build_fat_tree", [8, 3]]},
+              "modes": {"PF": "ugal_pf", "SF": "ugal_pf", "DF1": "ugal_pf",
+                        "FT": "ecmp"},
+              # the benchmark's traffic keys and the patterns they run
+              "patterns": {"uniform": "uniform", "perm": "random_perm"},
+              "k_candidates": 10, "tol": 0.01, "engine": "batched",
+              "iters": {"ugal_pf": 1500, "ecmp": 250},
+              "ports": PORTS, "paper_ft": PAPER_FT, "sat_floor": 1e-3},
+}
+SIZES_OUT = os.path.join(ROOT, "tests", "fixtures",
+                         "torch_port_sizes_reference.json")
 
 
 def write(path, doc):
@@ -666,6 +759,170 @@ def figures():
     write(FIGURES_OUT, doc)
 
 
+def _sized_run(rt, pat, mode, c, it, source=None, sat=None, gap=True):
+    """One run's row: FlowPaths, the saturation (or `sat`, from the
+    fixture entry `source`), and ugal_pf's truncation gap at the
+    saturation when `gap`."""
+    t0 = time.perf_counter()
+    fp = build_flow_paths(rt, pat, mode, k_candidates=c["k_candidates"],
+                          seed=c["seed"])
+    t1 = time.perf_counter()
+    f, kk, l = fp.edges.shape
+    row = {"mode": mode, "iters": it, "flows": f, "candidates": kk,
+           "path_len": l, "num_links": fp.num_links,
+           "sha256": flow_hashes(fp), "cpu_paths_s": round(t1 - t0, 1)}
+    if sat is None:
+        row["saturation"] = float(saturation_throughput(
+            fp, tol=c["tol"], iters=it, engine=c["engine"]))
+        row["saturation_source"] = "this run"
+    else:
+        row["saturation"], row["saturation_source"] = sat, source
+    t2 = time.perf_counter()
+    row["cpu_saturation_s"] = round(t2 - t1, 1)
+    if gap and mode in ("ugal", "ugal_pf"):
+        row["truncation_error"] = float(truncation_error(
+            fp, row["saturation"], it))
+        row["cpu_truncation_s"] = round(time.perf_counter() - t2, 1)
+    return row
+
+
+def _routed(builder, args, blocked):
+    """(graph, routing, its row): fig10's and fig8's routing of a graph."""
+    t0 = time.perf_counter()
+    g, pf = sizes_graph(builder, args, topologies, build_polarfly)
+    t1 = time.perf_counter()
+    rt = build_blocked_routing(g) if blocked else build_routing(g, pf)
+    row = {"routers": g.n, "radix": g.params["radix"], "links": g.num_edges,
+           "diameter": int(rt.diameter), "blocked": blocked,
+           "graph_sha256": graph_hash(g),
+           "cpu_graph_s": round(t1 - t0, 1),
+           "cpu_routing_s": round(time.perf_counter() - t1, 1)}
+    if blocked:
+        row["dest_block"] = int(rt.block)
+    else:
+        row["routing_sha256"] = routing_hashes(rt)
+    return g, rt, row
+
+
+def _fig10_point(name):
+    c = SIZES["fig10"]
+    builder, args, blocked = c["points"][name]
+    g, rt, top = _routed(builder, args, blocked)
+    top["p"] = fig10_p(builder, args, g, blocked)
+    top["runs"] = []
+    for mode in c["modes"]:
+        mf = fig10_max_flows(c, mode, g.n)
+        pat = make_pattern("uniform", rt, p=top["p"], seed=c["seed"],
+                           max_flows=mf)
+        src = c["saturations_from"].get(f"{name}.{mode}")
+        sat = other = None
+        if src is not None:
+            with open(os.path.join(ROOT, "tests", "fixtures", src[0])) as fh:
+                other = json.load(fh)["points"][src[1]]
+            sat = other[src[2]]
+        row = _sized_run(rt, pat, mode, c, c["iters"][mode],
+                         source=src and ":".join(src), sat=sat)
+        if other is not None and row["sha256"] != other["sha256"]:
+            raise SystemExit(f"fig10 {name} {mode}: FlowPaths are not "
+                             f"those of {':'.join(src)}")
+        top["runs"].append({"max_flows": mf, **row})
+        print(json.dumps({"figure": "fig10", "point": name, **row}),
+              flush=True)
+    return top
+
+
+def _fig8_large():
+    c = SIZES["fig8_large"]
+    g, rt, top = _routed(*c["graph"], True)
+    top["p"] = g.params.get("radix", 80) // 2
+    top["runs"] = []
+    for pattern in c["patterns"]:
+        pat = make_pattern(pattern, rt, p=top["p"], seed=c["seed"],
+                           max_flows=c["max_flows"])
+        for mode in c["modes"]:
+            row = {"pattern": pattern,
+                   **_sized_run(rt, pat, mode, c, c["iters"][mode])}
+            top["runs"].append(row)
+            print(json.dumps({"figure": "fig8_large", **row}), flush=True)
+    return top
+
+
+def _fig15():
+    c = SIZES["fig15"]
+    out, sats = {"topologies": {}}, {}
+    for name, (builder, args) in c["graphs"].items():
+        t0 = time.perf_counter()
+        g, pf = sizes_graph(builder, args, topologies, build_polarfly)
+        rt = build_routing(g, pf)
+        p, hosts = table5_traffic(g)
+        mode = c["modes"][name]
+        top = {"routers": g.n, "radix": g.params["radix"], "p": p,
+               "hosts": g.n if hosts is None else len(hosts),
+               "diameter": int(rt.diameter), "graph_sha256": graph_hash(g),
+               "routing_sha256": routing_hashes(rt),
+               "cpu_routing_s": round(time.perf_counter() - t0, 1),
+               "runs": []}
+        for key, pattern in c["patterns"].items():
+            pat = make_pattern(pattern, rt, p=p, hosts=hosts, seed=c["seed"])
+            row = {"traffic": key, "pattern": pattern,
+                   **_sized_run(rt, pat, mode, c, c["iters"][mode],
+                                gap=False)}
+            sats[name, key] = row["saturation"]
+            top["runs"].append(row)
+            print(json.dumps({"figure": "fig15", "topology": name, **row}),
+                  flush=True)
+        out["topologies"][name] = top
+    out["ratios"] = fig15_ratios(sats, c["ports"], c["sat_floor"])
+    print(json.dumps({"figure": "fig15", "ratios": out["ratios"]}),
+          flush=True)
+    return out
+
+
+def sizes_parts():
+    """Every part `--sizes` runs, in order."""
+    return (["fig15", "fig8_large"]
+            + [f"fig10.{n}" for n in SIZES["fig10"]["points"]])
+
+
+def _merge(part, value):
+    """Put `part`'s result into the sizes fixture under an exclusive lock
+    on the file (parts may run in several processes at once)."""
+    with open(SIZES_OUT, "a+") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        fh.seek(0)
+        text = fh.read()
+        doc = json.loads(text) if text.strip() else {}
+        if doc.get("config") != SIZES:
+            doc = {"config": SIZES, "fig10": {}}
+        doc.update({"source": "repro (JAX package), batched engine, CPU",
+                    "script": "scripts/make_torch_port_reference.py --sizes",
+                    "jax": jax.__version__, "numpy": np.__version__})
+        if part.startswith("fig10."):
+            doc["fig10"][part.split(".", 1)[1]] = value
+            doc["fig10"] = {k: doc["fig10"][k] for k in SIZES["fig10"][
+                "points"] if k in doc["fig10"]}  # the config's order
+        else:
+            doc[part] = value
+        fh.seek(0)
+        fh.truncate()
+        json.dump(doc, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {part} into {SIZES_OUT}", flush=True)
+
+
+def sizes(parts):
+    for part in parts or sizes_parts():
+        t0 = time.perf_counter()
+        if part == "fig15":
+            value = _fig15()
+        elif part == "fig8_large":
+            value = _fig8_large()
+        else:
+            value = _fig10_point(part.split(".", 1)[1])
+        value["cpu_part_s"] = round(time.perf_counter() - t0, 1)
+        _merge(part, value)
+
+
 def _collectives_run(name):
     """One compiled step's collectives (run `name` of `COLLECTIVES`), in
     a process whose XLA_FLAGS force 4 host devices."""
@@ -746,6 +1003,11 @@ def main():
     ap.add_argument("--collectives", action="store_true",
                     help="record the compiled four-card train step's "
                          "collectives instead")
+    ap.add_argument("--sizes", action="store_true",
+                    help="record Fig. 10's sweep, Fig. 8's PF(79) point and "
+                         "Fig. 15's cost ratios instead")
+    ap.add_argument("--parts", nargs="+", choices=sizes_parts(),
+                    help="with --sizes, these parts alone")
     ap.add_argument("--collectives-run", choices=list(COLLECTIVES["runs"]),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -754,6 +1016,8 @@ def main():
         return None
     if args.collectives:
         return collectives()
+    if args.sizes:
+        return sizes(args.parts)
     if args.figures:
         return figures()
     if args.table5:

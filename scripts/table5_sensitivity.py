@@ -35,8 +35,23 @@ the moves and the unmoved run), the port's CPU readings beside them
 (`port_cpu`), and `truncation_factor` (`truncation_factor()` below),
 which the phase widens a gap's band by.  About 30 minutes.
 
+With `--sizes CARD_JSON` it bands the runs of tests/fixtures/
+torch_port_sizes_reference.json that need it, on the grid in that
+fixture's `config`: the adaptive runs whose first card reading
+(`CARD_JSON`, the records scripts/sizes_cards.py writes) has its
+saturation more than one bisection step from the reference's, or its
+truncation gap outside the reference's value widened by the figures
+fixture's `truncation_factor` each way.  Each such run gets the
+reference's saturation and truncation gap with the demand moved one ulp
+up and one down (two more reference solves each), as `ulp_runs`,
+`ulp_band` and `port_cpu` in the figures fixture's form, and `ulp_why`:
+the card reading that called for the band.  Each oblivious run the card
+read otherwise gets `max_util_at`, the reference's max link utilization
+at its saturation and one bisection step above, the same with the
+demand moved one ulp each way (`tie_ulp_runs`), and `tie_why` (`tie()`).  Runs the card held get neither.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/table5_sensitivity.py \
-        [--figures] [--write]
+        [--figures | --sizes CARD_JSON] [--write]
 """
 import argparse
 import dataclasses
@@ -56,11 +71,14 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import repro.simulation as R  # noqa: E402
 import repro_torch.simulation as T  # noqa: E402
 from _torch_port import to_port  # noqa: E402
-from chip_smoke import (FIGURES_FIXTURE, TABLE5_FIXTURE,  # noqa: E402
-                        table5_traffic)
+from chip_smoke import (FIGURES_FIXTURE, SIZES_FIXTURE,  # noqa: E402
+                        TABLE5_FIXTURE, bisection_step, fig10_max_flows,
+                        fig10_p, sizes_factor, sizes_graph, table5_traffic)
+from repro.core import topologies  # noqa: E402
 from repro.core.expansion import expand  # noqa: E402
 from repro.core.layout import build_layout  # noqa: E402
 from repro.core.polarfly import build_polarfly  # noqa: E402
+from repro.core.routing import build_blocked_routing  # noqa: E402
 from repro.core.routing import build_routing  # noqa: E402
 from repro.core.topologies import paper_table5_configs  # noqa: E402
 
@@ -187,6 +205,164 @@ def figures(write):
         print(f"wrote {FIGURES_FIXTURE}")
 
 
+def sized_runs(fixture):
+    """(label, config, fixture row, rebuild) of each run of the sizes
+    fixture; `rebuild()` gives the reference's (routing, pattern)."""
+    def routed(builder, args, blocked):
+        g, pf = sizes_graph(builder, args, topologies, build_polarfly)
+        return g, (build_blocked_routing(g) if blocked
+                   else build_routing(g, pf))
+
+    c = fixture["config"]["fig15"]
+    for name, (builder, args) in c["graphs"].items():
+        for r in fixture["fig15"]["topologies"][name]["runs"]:
+            def rebuild(builder=builder, args=args, r=r, c=c):
+                g, rt = routed(builder, args, False)
+                p, hosts = table5_traffic(g)
+                return rt, R.make_pattern(r["pattern"], rt, p=p,
+                                          hosts=hosts, seed=c["seed"])
+            yield f"fig15.{name}.{r['traffic']}", c, r, rebuild
+    c = fixture["config"]["fig8_large"]
+    for r in fixture["fig8_large"]["runs"]:
+        def rebuild(r=r, c=c):
+            g, rt = routed(*c["graph"], True)
+            return rt, R.make_pattern(
+                r["pattern"], rt, p=g.params.get("radix", 80) // 2,
+                seed=c["seed"], max_flows=c["max_flows"])
+        yield f"fig8_large.{r['pattern']}.{r['mode']}", c, r, rebuild
+    c = fixture["config"]["fig10"]
+    for name, (builder, args, blocked) in c["points"].items():
+        for r in fixture["fig10"][name]["runs"]:
+            def rebuild(builder=builder, args=args, blocked=blocked, r=r,
+                        c=c):
+                g, rt = routed(builder, args, blocked)
+                return rt, R.make_pattern(
+                    "uniform", rt, p=fig10_p(builder, args, g, blocked),
+                    seed=c["seed"],
+                    max_flows=fig10_max_flows(c, r["mode"], g.n))
+            yield f"fig10.{name}.{r['mode']}", c, r, rebuild
+
+
+def card_rows(card):
+    """{label: row} of the card's runs in scripts/sizes_cards.py's
+    records, labelled as `sized_runs` labels them."""
+    out = {}
+    for part, rec in card["records"].items():
+        tops = rec["topologies"] if "topologies" in rec else {"": rec}
+        for top in tops.values():
+            for r in top["runs"]:
+                key = {"fig15": lambda: f"fig15.{r['topology']}."
+                                        f"{r['traffic']}",
+                       "fig8_large": lambda: f"fig8_large.{r['pattern']}."
+                                             f"{r['mode']}"}.get(
+                    part, lambda: f"fig10.{r['point']}.{r['mode']}")()
+                out[key] = r
+    return out
+
+
+def sizes(card_json, write):
+    with open(SIZES_FIXTURE) as fh:
+        fixture = json.load(fh)
+    with open(card_json) as fh:
+        card = card_rows(json.load(fh))
+    factor = sizes_factor()
+    for label, c, row, rebuild in sized_runs(fixture):
+        got = card.get(label)
+        if got is None:
+            continue
+        step = bisection_step(c["tol"])
+        if row["mode"] not in ADAPTIVE:
+            if got["saturation"] != row["saturation"]:
+                tie(label, row, rebuild, c, step, got["saturation"])
+            continue
+        why = []
+        if abs(got["saturation"] - row["saturation"]) > step:
+            why.append(f"card saturation {got['saturation']} against "
+                       f"{row['saturation']}, bisection step {step}")
+        if "truncation_error" in row:
+            gap, ref = got["truncation"]["gap"], row["truncation_error"]
+            if not ref / factor <= gap <= ref * factor:
+                why.append(f"card truncation gap {gap} against {ref} "
+                           f"x/÷ {factor}")
+        if not why:
+            continue
+        rt, pat = rebuild()
+        runs = {}
+        for key, ulps in moves(1):
+            fp = moved_paths(rt, pat, row["mode"], ulps, c)
+            runs[key] = sized_readings(R, fp, c, row)
+            if ulps == 0:
+                base = fp
+        for q, v in runs["reference"].items():
+            if v != row[q]:
+                raise SystemExit(f"{label}: {q} {v} is not the fixture's "
+                                 f"{row[q]}")
+        row["ulp_runs"] = {k: v for k, v in runs.items() if k != "reference"}
+        row["ulp_band"] = {q: [min(v[q] for v in runs.values()),
+                               max(v[q] for v in runs.values())]
+                           for q in runs["reference"]}
+        row["port_cpu"] = sized_readings(T, to_port(base), c, row,
+                                         device="cpu")
+        row["ulp_why"] = "; ".join(why)
+        print(json.dumps({"run": label, "ulp_band": row["ulp_band"],
+                          "port_cpu": row["port_cpu"],
+                          "why": row["ulp_why"]}), flush=True)
+    if write:
+        fixture["ulp_script"] = "scripts/table5_sensitivity.py --sizes"
+        with open(SIZES_FIXTURE, "w") as fh:
+            json.dump(fixture, fh, indent=1)
+            fh.write("\n")
+        print(f"wrote {SIZES_FIXTURE}")
+
+
+def tie(label, row, rebuild, c, step, card):
+    """Record, on an oblivious run the card read otherwise, the
+    reference's max link utilization at its saturation and one bisection
+    step above it (`max_util_at`, [[load, utilization], ...]), the same
+    readings and the saturation with every demand moved one ulp up and one
+    down (`tie_ulp_runs`), and why (`tie_why`): `chip_smoke.oblivious_bar`
+    lets the card's reading move to the neighbouring step where that
+    utilization is within TIE_REL of 1 (a link filled to capacity up to
+    float32 summation order)."""
+    it = c["iters"][row["mode"]]
+    loads = sorted({row["saturation"], min(row["saturation"] + step, 1.0)})
+    rt, pat = rebuild()
+    runs = {}
+    for key, ulps in moves(1):
+        fp = moved_paths(rt, pat, row["mode"], ulps, c)
+        runs[key] = {
+            "saturation": float(R.saturation_throughput(
+                fp, tol=c["tol"], iters=it, engine=c["engine"])),
+            "max_util_at": [[x, float(R.evaluate_load(fp, x, it).max_util)]
+                            for x in loads]}
+    ref = runs.pop("reference")
+    if ref["saturation"] != row["saturation"]:
+        raise SystemExit(f"{label}: {ref['saturation']} is not the "
+                         f"fixture's {row['saturation']}")
+    row["max_util_at"] = ref["max_util_at"]
+    row["tie_ulp_runs"] = runs
+    moved = ", ".join(f"{k} {v['saturation']}" for k, v in runs.items())
+    row["tie_why"] = (f"card saturation {card} against {row['saturation']}, "
+                      f"bisection step {step}; the reference with the "
+                      f"demand moved one ulp: {moved} (`tie_ulp_runs`)")
+    print(json.dumps({"run": label, "max_util_at": row["max_util_at"],
+                      "tie_ulp_runs": runs, "why": row["tie_why"]}),
+          flush=True)
+
+
+def sized_readings(pkg, fp, c, row, **kw):
+    """{quantity: value} of a sizes run in package `pkg`: the saturation
+    and, where the fixture has one, the truncation gap at the row's
+    saturation."""
+    it = c["iters"][row["mode"]]
+    out = {"saturation": float(pkg.saturation_throughput(
+        fp, tol=c["tol"], iters=it, engine=c["engine"], **kw))}
+    if "truncation_error" in row:
+        out["truncation_error"] = float(pkg.truncation_error(
+            fp, row["saturation"], it, **kw))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--write", action="store_true",
@@ -195,7 +371,13 @@ def main(argv=None):
     ap.add_argument("--figures", action="store_true",
                     help="the figures fixture's adaptive runs instead of "
                          "Table V's")
+    ap.add_argument("--sizes", metavar="CARD_JSON",
+                    help="band the sizes fixture's runs that the card "
+                         "readings in CARD_JSON (scripts/sizes_cards.py's "
+                         "records) call for")
     args = ap.parse_args(argv)
+    if args.sizes:
+        return sizes(args.sizes, args.write)
     if args.figures:
         return figures(args.write)
     with open(TABLE5_FIXTURE) as fh:

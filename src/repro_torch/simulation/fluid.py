@@ -929,7 +929,10 @@ def _truncation_gap(fp: FlowPaths, offered: float, iters: int,
         rho = fw.loads(split, d)
         split = _fma(keeps[i], split, gammas[i] * fw.fw_target(split, rho))
         acc = acc + rho
-    return (fw.loads(split, d) - acc / iters).abs().max()
+    # the reference divides by the constant as a product with its
+    # reciprocal, contracted with the difference into one FMA
+    recip = torch.ones((), dtype=acc.dtype, device=dev) / iters
+    return _fma(acc, -recip, fw.loads(split, d)).abs().max()
 
 
 def _certified_solve(fp: FlowPaths, offered: float, util_tol: float,
